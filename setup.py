@@ -43,8 +43,10 @@ setup(
     description=(
         "TPU-native (JAX/XLA/Pallas) GAN-based speech synthesis and "
         "voice conversion framework"),
-    packages=find_packages(include=["gantts_tpu", "gantts_tpu.*"]),
-    package_data={"gantts_tpu": ["../cpp/*.cpp", "../cpp/CMakeLists.txt"]},
+    packages=find_packages(include=["gantts_tpu", "gantts_tpu.*",
+                                    "gantts_tpu_torch", "gantts_tpu_torch.*"]),
+    package_data={"gantts_tpu": ["../cpp/*.cpp", "../cpp/CMakeLists.txt"],
+                  "gantts_tpu_torch.kernels": ["csrc/*.cu"]},
     install_requires=[
         "numpy",
         "scipy",
