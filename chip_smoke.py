@@ -8,22 +8,27 @@ Run from the root of the repository, with no arguments:
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
   1. device: require CUDA, print the card's name and power limit;
-  2. build the CUDA kernels from gantts_tpu_torch/kernels/csrc/;
+  2. build the CUDA kernels from gantts_tpu_torch/kernels/csrc/, one nvcc
+     per source, all started together;
   3. hold each kernel against its plain PyTorch version at the training
-     step's shapes (T=512, B=20, H=512, D in {425, 1024}, both directions,
-     relu, float32 and bfloat16), and time both;
-  4. the main path: full-width tts_acoustic GAN training steps (6x512
-     bidirectional SRU generator, MLP discriminator, dense MLPG, Adagrad,
-     bfloat16 compute, dropout on) through the kernels, with every launch
-     counter checked;
+     steps' shapes (T=512, B=20, H=512, D in {425, 1024}, float32 and
+     bfloat16; the SRU kernels in both directions with relu, the LSTM
+     kernels with two directions and with one, forward and reversed), and
+     time both;
+  4. the main paths, each with its launch counters set to 0 just before
+     and checked just after: full-width tts_acoustic GAN training steps
+     (MLP discriminator, dense MLPG, Adagrad, bfloat16 compute, dropout on)
+     with (4) the 6x512 bidirectional SRU generator and (4b) the 6x512
+     bidirectional LSTMRNN generator of bench.py's LSTM configuration;
   5. one small float32 step on the card against the same step on the CPU
      (where every kernel wrapper takes its plain version), same weights,
      and the same step on the card with TF32 matmuls as a control that the
-     comparison's limit must catch.
+     comparison's limit must catch: (5) with an SRU generator, (5b) with an
+     LSTMRNN.
 
-Phase 4 ends with a torch.profiler trace of a few more main-path steps,
-which prints where the device time goes and the idle share the trace
-measured (nothing is written to disk).
+Each main path ends with a torch.profiler trace of a few more of its
+steps, which prints where the device time goes and the idle share the
+trace measured (nothing is written to disk).
 
 The last lines are a JSON object describing each kernel, the card's name
 and power limit as nvidia-smi reports them, and the JSON status line.
@@ -36,6 +41,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -43,11 +49,17 @@ import torch
 T, B, H = 512, 20, 512
 LIN_DIM, OUT_DIM = 425, 187
 DISC_IN = 60 - 2 + LIN_DIM
-SOURCE = "gantts_tpu_torch/kernels/csrc/sru_scan.cu"
-REPLACES = {
-    "sru_proj_gemm": "gantts_tpu/kernels/sru_scan.py:560",
-    "sru_fwd_scan": "gantts_tpu/kernels/sru_scan.py:569",
-    "sru_bwd_scan": "gantts_tpu/kernels/sru_scan.py:272",
+SRU_SOURCE = "gantts_tpu_torch/kernels/csrc/sru_scan.cu"
+LSTM_SOURCE = "gantts_tpu_torch/kernels/csrc/lstm_scan.cu"
+# kernel -> (source, the Pallas kernels it replaces)
+KERNELS = {
+    "sru_proj_gemm": (SRU_SOURCE, "gantts_tpu/kernels/sru_scan.py:560"),
+    "sru_fwd_scan": (SRU_SOURCE, "gantts_tpu/kernels/sru_scan.py:569"),
+    "sru_bwd_scan": (SRU_SOURCE, "gantts_tpu/kernels/sru_scan.py:272"),
+    "lstm_fwd_scan": (LSTM_SOURCE, "gantts_tpu/kernels/lstm_scan.py:624, "
+                      "also :162 and :421"),
+    "lstm_bwd_scan": (LSTM_SOURCE, "gantts_tpu/kernels/lstm_scan.py:665, "
+                      "also :190"),
 }
 # Limits on max|kernel - plain| / max(max|plain|, 1).  float32: the kernels
 # contract multiply-adds and use libm's expf/tanhf where PyTorch runs
@@ -56,6 +68,13 @@ REPLACES = {
 # bf16 is 2^-8 relative, so two roundings apart stay under 1e-2.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 TOL_F32_STATE = 1e-4  # c and db are float32 in both I/O dtypes
+# LSTM kernels, from readings on an H100 (700 W) at these shapes: float32
+# y, c, g4, dxp and db within 2.5e-7, so 1e-5; bfloat16 y, g4 and dxp
+# within one output rounding (3.9e-3), so TOL.  In bf16 I/O, c and db are
+# float32 but fed by the bf16-rounded h (forward) or dxp (backward) of
+# earlier steps: readings 1.4e-4 and 7.9e-5, limit 2e-3.
+LSTM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+LSTM_TOL_STATE = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 # Phase 5 limits on |card - cpu| / max(|cpu|, 1e-6), see phase_small_step.
 PRE_RTOL = 3e-6   # losses and metrics taken before any parameter update
 POST_RTOL = 2e-4  # loss_adv and generator: through the just-updated D
@@ -74,8 +93,8 @@ def rel_err(a, b):
         float((a - b).abs().max())
 
 
-def time_ms(fn, reps):
-    for _ in range(3):  # warm-up
+def time_ms(fn, reps, warmup=3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -101,8 +120,22 @@ def bench_lengths(rs):
     return np.r_[rs.randint(T // 2, T, B - 1), T].astype(np.int32)
 
 
+def check(kernel, what, dt, D, got, ref, lim, errs):
+    rel, ab = rel_err(got, ref)
+    ok = rel <= lim and math.isfinite(rel)
+    shape = f"D={D:4d}" if D else "      "
+    print(f"[3] {kernel:13s} {what:5s} {str(dt)[6:]:8s} {shape}"
+          f" rel_err={rel:.3e} abs_err={ab:.3e} limit={lim:.0e}"
+          f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{kernel} {what} disagrees with its plain version")
+    if kernel in errs:
+        errs[kernel] = max(errs[kernel], ab)
+
+
 def phase_kernels(dev, card, errs):
-    """Phase 3: each kernel against its plain version, and both timed."""
+    """Phase 3: each SRU kernel against its plain version, and both
+    timed."""
     from gantts_tpu_torch.kernels import sru_scan as K
 
     gen = torch.Generator(device=dev)
@@ -172,15 +205,7 @@ def phase_kernels(dev, card, errs):
                     ("layer", "db", br.grad, db_q, TOL_F32_STATE),
                 ]
             for kernel, what, got, ref, lim in checks:
-                rel, ab = rel_err(got, ref)
-                ok = rel <= lim and math.isfinite(rel)
-                print(f"[3] {kernel:13s} {what:2s} {str(dt)[6:]:8s} D={D:4d}"
-                      f" rel_err={rel:.3e} abs_err={ab:.3e} limit={lim:.0e}"
-                      f" {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    fail(f"{kernel} {what} disagrees with its plain version")
-                if kernel in errs:
-                    errs[kernel] = max(errs[kernel], ab)
+                check(kernel, what, dt, D, got, ref, lim, errs)
 
     # times at the main path's shapes: bf16 I/O, D=1024 (layers 1-5)
     times = {}
@@ -209,7 +234,105 @@ def phase_kernels(dev, card, errs):
         print(f"[3] time {kernel:13s} {str(dt)[6:]:8s} {shape}"
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  [{card}]")
     return {k: times[(k, torch.bfloat16, 2 * H if k == "sru_proj_gemm"
-                      else None)] for k in REPLACES}
+                      else None)]
+            for k in ("sru_proj_gemm", "sru_fwd_scan", "sru_bwd_scan")}
+
+
+def phase_lstm_kernels(dev, card, errs):
+    """Phase 3, LSTM: both kernels against their plain versions, with two
+    directions and with one (forward and reversed), and the autograd layer
+    (GEMM and both scans chained by lstm_proj_layer) against the plain chain
+    fed with the kernel GEMM's own xp; then both kernels and both plain
+    versions timed at the main path's shape (bf16, two directions)."""
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    lengths = torch.as_tensor(bench_lengths(np.random.RandomState(0)),
+                              device=dev)
+    bound = 1.0 / H ** 0.5
+
+    def uniform(*shape):
+        return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound
+
+    def randn(*shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    for dt in (torch.float32, torch.bfloat16):
+        tol, tol_state = LSTM_TOL[dt], LSTM_TOL_STATE[dt]
+        for reverse in ((False, True), (False,), (True,)):
+            nd = len(reverse)
+            xp = (randn(T, B, nd * 4 * H, dt=torch.float32) * 0.5).to(dt)
+            whh, bias = uniform(nd, H, 4 * H).to(dt), uniform(nd, 4 * H)
+            gy = randn(T, B, nd * H, dt=dt)
+            y_k, c_k, g4_k = L.lstm_fwd_scan(xp, whh, bias, lengths, reverse)
+            y_p, c_p, g4_p = L.lstm_fwd_scan_plain(xp, whh, bias, lengths,
+                                                   reverse)
+            dxp_k, db_k = L.lstm_bwd_scan(whh, lengths, c_p, g4_p, gy,
+                                          reverse)
+            dxp_p, db_p = L.lstm_bwd_scan_plain(whh, lengths, c_p, g4_p, gy,
+                                                reverse)
+            tag = "".join("r" if r else "f" for r in reverse)
+            for kernel, what, got, ref, lim in (
+                    ("lstm_fwd_scan", "y", y_k, y_p, tol),
+                    ("lstm_fwd_scan", "c", c_k, c_p, tol_state),
+                    ("lstm_fwd_scan", "g4", g4_k, g4_p, tol),
+                    ("lstm_bwd_scan", "dxp", dxp_k, dxp_p, tol),
+                    ("lstm_bwd_scan", "db", db_k, db_p, tol_state)):
+                check(kernel, f"{what}:{tag}", dt, None, got, ref, lim, errs)
+        for D in (LIN_DIM, 2 * H):
+            x = randn(T, B, D, dt=torch.float32).requires_grad_(True)
+            params = [dict(w_ih=uniform(D, 4 * H).requires_grad_(True),
+                           w_hh=uniform(H, 4 * H).requires_grad_(True),
+                           bias=uniform(4 * H).requires_grad_(True))
+                      for _ in range(2)]
+            gy = randn(T, B, 2 * H, dt=dt)
+            cd = "bfloat16" if dt == torch.bfloat16 else "float32"
+            y_a = L.lstm_proj_layer(x, params, lengths, (False, True), cd)
+            y_a.backward(gy)
+            # the plain chain, from the kernel GEMM's xp
+            x_c = x.detach().to(dt)
+            w_cat = torch.cat([p["w_ih"].detach() for p in params], -1).to(dt)
+            xp = L.sru_proj_gemm(x_c.reshape(T * B, D), w_cat)
+            whh = torch.stack([p["w_hh"].detach() for p in params]).to(dt)
+            bias = torch.stack([p["bias"].detach() for p in params])
+            y_q, c_q, g4_q = L.lstm_fwd_scan_plain(
+                xp.reshape(T, B, -1), whh, bias, lengths, (False, True))
+            dxp_q, db_q = L.lstm_bwd_scan_plain(whh, lengths, c_q, g4_q, gy,
+                                                (False, True))
+            dxp2 = dxp_q.reshape(T * B, -1)
+            dx_q = L.mm_f32(dxp2, w_cat.t()).to(dt).reshape(T, B, D)
+            dwih_q = L.mm_f32(x_c.reshape(T * B, D).t(), dxp2)
+            for d in range(2):
+                check("lstm_layer", f"dWih{d}", dt, D, params[d]["w_ih"].grad,
+                      dwih_q[:, 4 * H * d:4 * H * (d + 1)], tol, errs)
+                check("lstm_layer", f"dWhh{d}", dt, D, params[d]["w_hh"].grad,
+                      L._shifted_dwhh(y_q, dxp_q, d, H, d == 1), tol, errs)
+                check("lstm_layer", f"db{d}", dt, D, params[d]["bias"].grad,
+                      db_q[d], tol_state, errs)
+            check("lstm_layer", "y", dt, D, y_a, y_q, tol, errs)
+            check("lstm_layer", "dx", dt, D, x.grad, dx_q, tol, errs)
+
+    # times at the main path's shape: bf16 I/O, both directions
+    rev = (False, True)
+    xp = (randn(T, B, 8 * H, dt=torch.float32) * 0.5).to(torch.bfloat16)
+    whh, bias = uniform(2, H, 4 * H).to(torch.bfloat16), uniform(2, 4 * H)
+    gy = randn(T, B, 2 * H, dt=torch.bfloat16)
+    _, c, g4 = L.lstm_fwd_scan(xp, whh, bias, lengths, rev)
+    times = {
+        "lstm_fwd_scan": (
+            time_ms(lambda: L.lstm_fwd_scan(xp, whh, bias, lengths, rev), 10),
+            time_ms(lambda: L.lstm_fwd_scan_plain(xp, whh, bias, lengths,
+                                                  rev), 1, warmup=1)),
+        "lstm_bwd_scan": (
+            time_ms(lambda: L.lstm_bwd_scan(whh, lengths, c, g4, gy, rev),
+                    10),
+            time_ms(lambda: L.lstm_bwd_scan_plain(whh, lengths, c, g4, gy,
+                                                  rev), 1, warmup=1))}
+    for kernel, (ms, plain_ms) in times.items():
+        print(f"[3] time {kernel:13s} bfloat16 two directions "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  [{card}]")
+    return times
 
 
 def acoustic_hp(compute_dtype, **gen_overrides):
@@ -223,6 +346,26 @@ def acoustic_hp(compute_dtype, **gen_overrides):
     return hp
 
 
+def lstm_hp(compute_dtype, **gen_overrides):
+    """bench.py's LSTM-family configuration (bench.py:58-63): the
+    tts_acoustic bundle with a 6x512 bidirectional LSTMRNN generator,
+    dropout 0.2."""
+    hp = acoustic_hp(compute_dtype)
+    hp.generator = "LSTMRNN"
+    hp.generator_params = dict(in_dim=LIN_DIM, out_dim=OUT_DIM, num_hidden=6,
+                               hidden_dim=H, bidirectional=True, dropout=0.2)
+    hp.generator_params.update(gen_overrides)
+    return hp
+
+
+def lstm_param_count(in_dim, hidden, layers, out_dim):
+    """Parameters of a bidirectional LSTMRNN, from its shapes: per layer and
+    direction w_ih, w_hh and two bias vectors; then the linear head."""
+    per_dir = [d * 4 * hidden + hidden * 4 * hidden + 2 * 4 * hidden
+               for d in [in_dim] + [2 * hidden] * (layers - 1)]
+    return 2 * sum(per_dir) + 2 * hidden * out_dim + out_dim
+
+
 def make_trainer(hp, dev):
     from gantts_tpu_torch.train import GanTrainer, StepConfig
 
@@ -232,18 +375,22 @@ def make_trainer(hp, dev):
                       np.ones(OUT_DIM, np.float32), dev)
 
 
-def phase_main_path(dev, card):
-    """Phase 4: full-width bf16 training steps through the kernels."""
+def phase_main_path(dev, card, tag, hp, per_step, n_expected=None):
+    """Phase 4 (``tag`` "4" or "4b"): full-width bf16 training steps
+    through the kernels.  ``per_step``: the launches of each kernel that
+    one step must make; ``n_expected``: the generator's parameter count."""
     from gantts_tpu_torch._shared import unit_variance_mlpg_matrix
     from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
     from gantts_tpu_torch.train.setup import init_models_and_states
 
-    hp = acoustic_hp("bfloat16")
     model_g, model_d, _, _, gstate, dstate = init_models_and_states(
         hp, seed=0, device=dev)
     n_params = sum(p.numel() for p in model_g.parameters())
-    print(f"[4] generator {n_params} parameters, discriminator "
-          f"{sum(p.numel() for p in model_d.parameters())}")
+    print(f"[{tag}] {hp.generator} generator {n_params} parameters, "
+          f"discriminator {sum(p.numel() for p in model_d.parameters())}")
+    if n_expected is not None and n_params != n_expected:
+        fail(f"{hp.generator} has {n_params} parameters, its shapes give "
+             f"{n_expected}")
     trainer = make_trainer(hp, dev)
     rs = np.random.RandomState(0)
     x = torch.as_tensor(rs.rand(B, T, LIN_DIM).astype(np.float32), device=dev)
@@ -273,7 +420,7 @@ def phase_main_path(dev, card):
 
     for i, out in enumerate(outs):
         vals = {k: float(v) for k, v in out.items()}
-        print(f"[4] step {i}: " + " ".join(
+        print(f"[{tag}] step {i}: " + " ".join(
             f"{k}={v:.6g}" for k, v in vals.items()))
         for k in ("discriminator", "loss_real_d", "loss_fake_d", "mge",
                   "mse", "loss_adv", "generator", "mcd", "bap_mcd",
@@ -284,14 +431,14 @@ def phase_main_path(dev, card):
         if not torch.isfinite(p).all():
             fail("a parameter is not finite after the steps")
     for name, n in counts.items():
-        print(f"[4] launches {name}: {n} in {STEPS} steps")
-        if n != 12 * STEPS:
+        print(f"[{tag}] launches {name}: {n} in {STEPS} steps")
+        if n != per_step[name] * STEPS:
             fail(f"{name} launched {n} times in {STEPS} steps, "
-                 f"expected {12 * STEPS}")
+                 f"expected {per_step[name] * STEPS}")
     ms = dt / STEPS * 1e3
     fps = float(lh.sum()) * STEPS / dt
-    print(f"[4] tts_acoustic step B={B} T={T} bf16: {ms:.3f} ms/step, "
-          f"{fps:.1f} frames/s, peak memory {peak} bytes "
+    print(f"[{tag}] tts_acoustic {hp.generator} step B={B} T={T} bf16: "
+          f"{ms:.3f} ms/step, {fps:.1f} frames/s, peak memory {peak} bytes "
           f"({peak / 2**30:.3f} GiB)  [{card}]")
 
     def run_steps(n):
@@ -315,16 +462,18 @@ def _union_us(intervals):
 KERNEL_GROUPS = (("sru_proj_gemm", ("proj_gemm",)),
                  ("sru_fwd_scan", ("sru_fwd_scan",)),
                  ("sru_bwd_scan", ("sru_bwd_scan",)),
+                 ("lstm_fwd_scan", ("lstm_fwd_kernel",)),
+                 ("lstm_bwd_scan", ("lstm_bwd_kernel",)),
                  ("library GEMMs (dx, dW, D, head, MLPG)",
                   ("gemm", "cutlass", "xmma", "cublas", "nvjet")))
 
 
-def phase_profile(run_steps, ms_unprofiled, card):
+def phase_profile(tag, run_steps, ms_unprofiled, card):
     """Trace PROFILE_STEPS more main-path steps with torch.profiler.
 
     Device busy time is the union of the trace's device intervals (kernels,
-    copies, fills; not annotations); the idle share is 1 - busy / the traced wall span of
-    the steps, both from this one trace.  The profiler adds host time per
+    copies, fills; not annotations); the idle share is 1 - busy / the
+    traced wall span of the steps, both from this one trace.  The profiler adds host time per
     launch, so that idle share is an upper bound for an unprofiled step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -345,7 +494,7 @@ def phase_profile(run_steps, ms_unprofiled, card):
            and e.name not in host_names
            and e.time_range.end > e.time_range.start]
     if not span or not dev:
-        print(f"[P] the trace holds no device activity: device time not "
+        print(f"[{tag}P] the trace holds no device activity: device time not "
               f"measured  [{card}]")
         return
     t0, t1 = span[0].time_range.start, span[0].time_range.end
@@ -357,7 +506,7 @@ def phase_profile(run_steps, ms_unprofiled, card):
         per_name[e.name] = per_name.get(e.name, 0.0) + \
             (e.time_range.end - e.time_range.start) / 1e3 / PROFILE_STEPS
     summed = sum(per_name.values())
-    print(f"[P] {PROFILE_STEPS} traced steps: wall {wall:.3f} ms/step "
+    print(f"[{tag}P] {PROFILE_STEPS} traced steps: wall {wall:.3f} ms/step "
           f"(unprofiled {ms_unprofiled:.3f}), device busy {busy:.3f} "
           f"ms/step, idle share {1 - busy / wall:.4f} of the traced wall; "
           f"device events summed {summed:.3f} ms/step  [{card}]")
@@ -372,14 +521,14 @@ def phase_profile(run_steps, ms_unprofiled, card):
         else:
             rest += t
     for g, t in list(groups.items()) + [("the rest", rest)]:
-        print(f"[P]   {g:40s} {t:8.3f} ms/step {100 * t / summed:5.1f}%")
+        print(f"[{tag}P]   {g:40s} {t:8.3f} ms/step {100 * t / summed:5.1f}%")
     for name, t in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"[P]   top {t:8.3f} ms/step  {name[:90]}")
+        print(f"[{tag}P]   top {t:8.3f} ms/step  {name[:90]}")
 
 
-def phase_small_step(dev):
-    """Phase 5: a small float32 step (dropout off) on the card against the
-    same step on the CPU, from the same weights.
+def phase_small_step(dev, tag, hp):
+    """Phase 5 (``tag`` "5" or "5b"): a small float32 step (dropout off)
+    on the card against the same step on the CPU, from the same weights.
 
     Losses and metrics taken before any update must agree to PRE_RTOL: the
     card and the CPU differ there only in summation order and in libm's
@@ -392,12 +541,10 @@ def phase_small_step(dev):
     the comparison could not see such a slip.  Both limits sit between
     readings on an H100 (700 W): the largest sound gaps were 2.7e-7
     (pre-update) and 7.1e-6 (post-update), the control's 3.9e-5 and
-    5.9e-3."""
+    5.9e-3.  The same limits hold the LSTMRNN step (5b)."""
     from gantts_tpu_torch._shared import unit_variance_mlpg_matrix
     from gantts_tpu_torch.train.setup import init_models_and_states
 
-    hp = acoustic_hp("float32", num_hidden=2, hidden_dim=64, dropout=0.0,
-                     rnn_dropout=0.0)
     hp.discriminator_params.update(dropout=0.0)
     Ts, Bs = 64, 4
     rs = np.random.RandomState(1)
@@ -440,15 +587,15 @@ def phase_small_step(dev):
         lim = POST_RTOL if k in POST_UPDATE else PRE_RTOL
         g, gc = gap(card[k], cpu[k]), gap(control[k], cpu[k])
         ok = g <= lim
-        print(f"[5] {k:20s} card={card[k]:.8g} cpu={cpu[k]:.8g} "
+        print(f"[{tag}] {k:20s} card={card[k]:.8g} cpu={cpu[k]:.8g} "
               f"gap={g:.2e} limit={lim:.0e} {'ok' if ok else 'FAIL'}  "
               f"control(tf32) gap={gc:.2e}")
         if not ok:
             fail(f"small step: {k} on the card differs from the CPU")
         if k not in POST_UPDATE:
             worst, worst_control = max(worst, g), max(worst_control, gc)
-    print(f"[5] pre-update: largest gap {worst:.2e}, limit {PRE_RTOL:.0e}, "
-          f"control's largest gap {worst_control:.2e}")
+    print(f"[{tag}] {hp.generator} pre-update: largest gap {worst:.2e}, "
+          f"limit {PRE_RTOL:.0e}, control's largest gap {worst_control:.2e}")
     if not worst_control > PRE_RTOL:
         fail("small step: the TF32 control stays within the limit, so the "
              "comparison cannot see a TF32 matmul")
@@ -464,12 +611,14 @@ def main():
           f"{torch.cuda.device_count()} device(s)")
 
     from gantts_tpu_torch.core import paramgen  # noqa: F401  (TF32 off)
-    from gantts_tpu_torch.kernels import _build, sru_scan
+    from gantts_tpu_torch.kernels import _build, lstm_scan, sru_scan
 
     print(f"[1] allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32}"
           f" cudnn={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    sru_scan._lib()
+    with ThreadPoolExecutor() as pool:  # one nvcc per source, together
+        for f in [pool.submit(m._lib) for m in (sru_scan, lstm_scan)]:
+            f.result()
     print(f"[2] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, (secs, log) in _build.build_log.items():
         print(f"[2] nvcc {name}: {secs:.2f} s")
@@ -477,16 +626,30 @@ def main():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[2]   {line.strip()}")
 
-    errs = {k: 0.0 for k in REPLACES}
+    errs = {k: 0.0 for k in KERNELS}
     times = phase_kernels(dev, card, errs)
-    counts, ms, run_steps = phase_main_path(dev, card)
-    phase_profile(run_steps, ms, card)
-    phase_small_step(dev)
+    times.update(phase_lstm_kernels(dev, card, errs))
+    none = {k: 0 for k in KERNELS}
+    counts, ms, run_steps = phase_main_path(
+        dev, card, "4", acoustic_hp("bfloat16"),
+        dict(none, sru_proj_gemm=12, sru_fwd_scan=12, sru_bwd_scan=12))
+    phase_profile("4", run_steps, ms, card)
+    counts_b, ms, run_steps = phase_main_path(
+        dev, card, "4b", lstm_hp("bfloat16"),
+        dict(none, sru_proj_gemm=6, lstm_fwd_scan=6, lstm_bwd_scan=6),
+        lstm_param_count(LIN_DIM, H, 6, OUT_DIM))
+    phase_profile("4b", run_steps, ms, card)
+    phase_small_step(dev, "5", acoustic_hp(
+        "float32", num_hidden=2, hidden_dim=64, dropout=0.0, rnn_dropout=0.0))
+    phase_small_step(dev, "5b", lstm_hp(
+        "float32", num_hidden=2, hidden_dim=64, dropout=0.0))
 
-    kernels = [{"name": k, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[k], "launches": counts[k],
+    # launches: both main paths' runs (sru_proj_gemm serves both)
+    kernels = [{"name": k, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": counts[k] + counts_b[k],
                 "max_abs_err": errs[k], "ms": times[k][0],
-                "plain_ms": times[k][1]} for k in REPLACES]
+                "plain_ms": times[k][1]}
+               for k, (src, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 
 The port's modules use the JAX package's scope and parameter names and
 layouts (``TorchLinear`` keeps the (in, out) ``kernel``; SRU layers keep
-``w`` (D, kH), ``bf`` and ``br`` under ``gru/l{i}_{fwd,bwd}``), so a flax
+``w`` (D, kH), ``bf`` and ``br`` under ``gru/l{i}_{fwd,bwd}``; LSTM layers
+keep ``w_ih`` (D, 4H), ``w_hh`` (H, 4H), ``b_ih`` and ``b_hh`` under
+``lstm/l{i}_{fwd,bwd}``, or ``gru/...`` for GRURNN), so a flax
 parameter tree and a torch ``state_dict`` differ only in nesting:
 ``{"params": {"gru": {"l0_fwd": {"w": ...}}}}`` <-> ``"gru.l0_fwd.w"``.
 Both directions copy the values bit for bit.

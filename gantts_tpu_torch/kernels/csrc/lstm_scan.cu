@@ -1,0 +1,619 @@
+// Hopper (sm_90a) kernels for the LSTM recurrence: one or two directions of
+// one layer in one launch.
+//
+// Two launches replace the TPU kernels of gantts_tpu/kernels/lstm_scan.py:
+//
+//   lstm_fwd_scan  the recurrence of `_lstm_fwd_kernel`, `_plstm_fwd_kernel`
+//                  and `_bilstm_fwd_kernel`, from xp = x @ W_ih (the
+//                  projection is sru_proj_gemm, the counterpart of
+//                  `_proj_u`): gates = xp_t + b + h_{t-1} W_hh with f32
+//                  accumulation, i, f, o sigmoid and g tanh, c = f c + i g,
+//                  h = o tanh(c), both carries frozen past each row's
+//                  length; y (zero there), c (f32) and the activated gates
+//                  g4 are stored per step.
+//
+//   lstm_bwd_scan  the BPTT of `_lstm_bwd_kernel` and `_bilstm_bwd_kernel`:
+//                  walks each direction opposite to its forward traversal,
+//                  forms the gate adjoints from the stored g4 and c, stores
+//                  them as dxp, carries dh = (1 - m) dh + dxp_t W_hh^T and
+//                  dc, and writes per-row partials of the bias gradient that
+//                  the caller sums (deterministic, no atomics).  dW_hh, dx
+//                  and dW_ih are library matmuls outside, as the JAX package
+//                  leaves them to XLA.
+//
+// What bounds them.  Each step needs all of h_{t-1} (B x H) and all of W_hh
+// (H x 4H: 2 MB in bf16 at H=512), and the steps are strictly sequential.
+// The TPU kernel keeps W_hh resident in VMEM.  No SM holds 2 MB (227 KB of
+// shared memory), and streaming W_hh from L2 every step would read 2 MB per
+// block per step.  The work of one step is small (B=20, H=512: 84 MFLOP for
+// both directions), so a step's latency, not bandwidth or FLOPs, bounds the
+// kernel.
+//
+// The design: a persistent kernel.  Each direction's hidden units are spread
+// over up to 64 blocks (8 units each at H=512).  A block keeps its slice of
+// W_hh in shared memory for the whole launch (the columns of its units' four
+// gates in the forward, the rows of its units in the backward: 32 KB in
+// bf16), holds its units' carries in shared memory, and walks all of T.
+// Each step the blocks of one direction exchange what the next step needs
+// through global memory (h_t in a small scratch, double-buffered by step
+// parity, in the forward; dgates_t straight from dxp in the backward) and
+// meet at a barrier: one counter per direction, counting arrivals
+// monotonically over the launch, so it is never reset.  The two directions
+// never wait on each other.  The barrier needs every block resident at
+// once, so the launch is cooperative: cudaLaunchCooperativeKernel refuses a
+// grid that could not be, and the caller raises.
+//
+// Per step a block stages the exchanged activations into shared memory and
+// forms its slice of the product.  In bf16 (the training step's I/O), when
+// the slice is 8, 16 or 32 columns wide and H a multiple of 16, the rows
+// are staged in one pass of 16-byte cp.async copies and the product runs
+// on the tensor cores (mma.sync m16n8k16, f32 accumulation); otherwise
+// (f32 I/O, odd shapes) they are staged as f32 in chunks and each of 256
+// threads accumulates up to 32 rows for one column over a strided slice of
+// k with FMA.  Partial sums are reduced through shared memory.  On an H100
+// at B=20, H=512, bf16, with both directions, a step takes about 6.9 us
+// forward and 7.4 us backward (FMA products: 14 and 23 us).  What is left
+// is mostly latency: the barrier (about 1.2 us: store, fence, atomic,
+// spin), the staging's round trip through L2 (the backward's 64 blocks of
+// a direction each read all 80 KB of dgates_t) and the cells' scattered
+// loads.  No TMA, wgmma or clusters yet.
+//
+// Every entry point launches on the caller's stream, allocates nothing, and
+// returns a cudaError_t code.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T v);
+template <>
+__device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch's cast
+}
+
+// Loads of values that other blocks wrote during this launch go to L2
+// (ld.global.cg), never to a line this SM's L1 may hold from before.
+__device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ __nv_bfloat16 load_cg(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(
+      __ldcg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+__device__ __forceinline__ float sigmoidf(float x) {
+  return 1.f / (1.f + expf(-x));
+}
+
+constexpr int kThreads = 256;
+constexpr int kMaxBlocksPerDir = 64;
+constexpr int kRows = 32;            // rows of the product per pass
+constexpr int kAStride = kRows + 4;  // a warp's 4 k-rows hit distinct banks
+constexpr int kChunk = 512;          // k values staged per pass
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// All blocks of one direction meet here; ``target`` is (number of barriers
+// passed so far + 1) * blocks per direction.
+__device__ __forceinline__ void dir_barrier(unsigned* count, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1u);
+    while (ld_acquire(count) < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// part[kg][r][col] = sum over this thread's k of A[r][k] * W[k][col], for
+// the nr (<= kRows) rows of A at src (I/O dtype, row stride ld, K columns)
+// and the block's weight slice Ws[K][ncol].  Thread tid owns column
+// tid % ncol and the k = kg, kg + nkg, ... of each chunk, kg = tid / ncol.
+template <typename T>
+__device__ int slice_product(const T* src, size_t ld, int K, const T* Ws,
+                             int ncol, float* As, float* part, int nr) {
+  const int tid = threadIdx.x;
+  const int nkg = kThreads / ncol;
+  const int col = tid % ncol, kg = tid / ncol;
+  const int nr4 = (nr + 3) & ~3;
+  float acc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += kChunk) {
+    const int kc = min(kChunk, K - k0);
+    __syncthreads();  // the previous chunk and part are no longer read
+    // Each thread stages whole k columns (all rows), so no index is
+    // divided; every load of a column is issued before any is used.
+    for (int kk = tid; kk < kc; kk += kThreads) {
+      T v[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (r < nr) v[r] = load_cg(src + (size_t)r * ld + k0 + kk);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (r < nr4) As[kk * kAStride + r] = r < nr ? to_f32(v[r]) : 0.f;
+    }
+    __syncthreads();
+    if (kg < nkg) {
+      for (int k = kg; k < kc; k += nkg) {
+        const float w = to_f32(Ws[(size_t)(k0 + k) * ncol + col]);
+        const float4* a4 = reinterpret_cast<const float4*>(As + k * kAStride);
+#pragma unroll
+        for (int q = 0; q < kRows / 4; ++q) {
+          if (4 * q < nr4) {
+            const float4 a = a4[q];
+            acc[4 * q] = fmaf(a.x, w, acc[4 * q]);
+            acc[4 * q + 1] = fmaf(a.y, w, acc[4 * q + 1]);
+            acc[4 * q + 2] = fmaf(a.z, w, acc[4 * q + 2]);
+            acc[4 * q + 3] = fmaf(a.w, w, acc[4 * q + 3]);
+          }
+        }
+      }
+    }
+  }
+  if (kg < nkg) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (r < nr) part[(kg * kRows + r) * ncol + col] = acc[r];
+  }
+  __syncthreads();
+  return nkg;
+}
+
+// The same product for bf16 on the tensor cores, mma.sync m16n8k16 with
+// f32 accumulation: the block's weight slice is Wt[ncol][K + 8] (k
+// contiguous, rows padded so a warp's fragment loads hit 32 banks), the A
+// rows are staged as bf16 rows Ah[kRows][min(K, kChunkH) + 8] by 16-byte
+// cp.async copies, all issued before any is waited for: one L2 round trip
+// per step for up to 2048 k.  The (m16 x n8) output tiles (2 x ncol/8 at
+// B=20) go one to a warp, and the warps left over split K: ``8 / tiles``
+// partial sums per output, which is what the function returns.  Each warp
+// alternates two accumulators so consecutive mma do not wait on each
+// other.  The caller takes this path only for ncol in {8, 16, 32} and K
+// and the row stride multiples of 16 (aligned copies, whole k-steps).
+// Rows of Ah past nr are left stale: an output row depends on its own A
+// row only, and those rows are dropped.
+constexpr int kChunkH = 2048;
+
+__host__ __device__ inline int a_stride_h(int K) {
+  return (K < kChunkH ? K : kChunkH) + 8;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+// One m16n8k16 step of a warp's tile at k offset kk of the staged chunk.
+__device__ __forceinline__ void mma_step(float (&c)[4],
+                                         const __nv_bfloat16* ap,
+                                         const __nv_bfloat16* bp, int as,
+                                         int kk) {
+  const uint32_t a[4] = {lds32(ap + kk), lds32(ap + 8 * as + kk),
+                         lds32(ap + kk + 8), lds32(ap + 8 * as + kk + 8)};
+  mma_bf16(c, a, lds32(bp + kk), lds32(bp + kk + 8));
+}
+
+__device__ int slice_product_mma(const __nv_bfloat16* src, size_t ld, int K,
+                                 const __nv_bfloat16* Wt, int ncol,
+                                 __nv_bfloat16* Ah, float* part, int nr) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int ntiles = ncol >> 3, tiles = (nr > 16 ? 2 : 1) * ntiles;
+  const int ks = (kThreads / 32) / tiles;
+  const int tile = warp % tiles, split = warp / tiles;
+  const int m0 = (tile / ntiles) * 16, n0 = (tile % ntiles) * 8;
+  const int as = a_stride_h(K);
+  const size_t sw = (size_t)K + 8;
+  float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k0 = 0; k0 < K; k0 += kChunkH) {
+    const int kc = min(kChunkH, K - k0), vpr = kc / 8;
+    __syncthreads();  // the previous chunk and part are no longer read
+    if (vpr <= kThreads) {
+      const int rstep = kThreads / vpr, r0 = tid / vpr, q = tid - r0 * vpr;
+      if (r0 < rstep)
+        for (int r = r0; r < nr; r += rstep)
+          cp_async16(Ah + r * as + q * 8, src + (size_t)r * ld + k0 + q * 8);
+    } else {
+      for (int r = 0; r < nr; ++r)
+        for (int q = tid; q < vpr; q += kThreads)
+          cp_async16(Ah + r * as + q * 8, src + (size_t)r * ld + k0 + q * 8);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    const __nv_bfloat16* ap = Ah + (m0 + g) * as + t4 * 2;
+    const __nv_bfloat16* bp = Wt + (n0 + g) * sw + k0 + t4 * 2;
+    const int step = ks * 16;
+    int kk = split * 16;
+    for (; kk + step < kc; kk += 2 * step) {
+      mma_step(c0, ap, bp, as, kk);
+      mma_step(c1, ap, bp, as, kk + step);
+    }
+    if (kk < kc) mma_step(c0, ap, bp, as, kk);
+  }
+  float* p = part + split * kRows * ncol + n0 + t4 * 2;
+  const int r = m0 + g;
+  if (r < nr) p[r * ncol] = c0[0] + c1[0], p[r * ncol + 1] = c0[1] + c1[1];
+  if (r + 8 < nr)
+    p[(r + 8) * ncol] = c0[2] + c1[2], p[(r + 8) * ncol + 1] = c0[3] + c1[3];
+  __syncthreads();
+  return ks;
+}
+
+// The block's product by whichever path the launch chose (``mma`` is
+// uniform over the grid); returns the number of partial sums per output.
+template <typename T>
+__device__ int product(const T* src, size_t ld, int K, const T* W, int ncol,
+                       float* As, float* part, int nr, int mma) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (mma)
+      return slice_product_mma(src, ld, K, W, ncol,
+                               reinterpret_cast<__nv_bfloat16*>(As), part, nr);
+  }
+  return slice_product(src, ld, K, W, ncol, As, part, nr);
+}
+
+__host__ __device__ inline size_t align16(size_t n) {
+  return (n + 15) & ~(size_t)15;
+}
+
+// The weight slice: ncol columns of K values, as Ws[K][ncol] for the FMA
+// product or Wt[ncol][K + 8] for the tensor cores; room for either.
+template <typename T>
+__host__ __device__ size_t w_bytes(int K, int ncol) {
+  return align16(sizeof(T) * (size_t)ncol * (K + 8));
+}
+
+// Floats of the staged A region: f32 chunks for the FMA product, or bf16
+// rows for the tensor cores (bf16 only), rounded to 16 bytes.
+template <typename T>
+__host__ __device__ size_t a_floats(int K) {
+  const size_t fma = (size_t)kChunk * kAStride;
+  const size_t mma = std::is_same<T, __nv_bfloat16>::value
+                         ? ((size_t)kRows * a_stride_h(K) / 2 + 3) & ~(size_t)3
+                         : 0;
+  return fma > mma ? fma : mma;
+}
+
+// Bytes of shared memory: the weight slice, then the f32 regions: the
+// staged A rows, the partial sums, and ``carries`` floats per cell.
+template <typename T>
+size_t smem_bytes(int K, int ncol, int hs, int B, int carries) {
+  return w_bytes<T>(K, ncol) +
+         sizeof(float) * (a_floats<T>(K) + (size_t)kThreads * kRows +
+                          (size_t)carries * B * hs);
+}
+
+// ---------------------------------------------------------------------------
+// Forward.  Layouts: xp and g4 (T, B, ndir*4H), direction d's [i|f|g|o]
+// blocks at [d*4H, (d+1)*4H); y and c (T, B, ndir*H); W_hh (ndir, H, 4H);
+// bias (ndir, 4H) f32; hx scratch (2, ndir, B, H) in the I/O dtype.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ whh,
+                const float* __restrict__ bias,
+                const int* __restrict__ lengths, T* __restrict__ y,
+                float* __restrict__ c, T* __restrict__ g4, T* hx, unsigned* bar, int nt, int B, int H, int hs_max, int nb,
+                int ndir, int rev_mask, int mma) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int d = blockIdx.x / nb, j0 = (blockIdx.x % nb) * hs_max;
+  const int hs = min(hs_max, H - j0);
+  const int ncol = 4 * hs_max;
+  const int rev = (rev_mask >> d) & 1;
+  const size_t G = (size_t)ndir * 4 * H, Y = (size_t)ndir * H;
+  T* Ws = reinterpret_cast<T*>(smem);  // W_hh columns of the units' gates
+  float* As = reinterpret_cast<float*>(smem + w_bytes<T>(H, ncol));
+  float* part = As + a_floats<T>(H);
+  float* hcar = part + kThreads * kRows;  // [B][hs_max]
+  float* ccar = hcar + B * hs_max;
+
+  // column col = g * hs_max + jj is W_hh[:, g*H + j0 + jj]
+  const T* w = whh + (size_t)d * H * 4 * H;
+  for (int i = tid; i < H * ncol; i += kThreads) {
+    const int k = i / ncol, col = i - k * ncol;
+    const int g = col / hs_max, jj = col - g * hs_max;
+    const T v = jj < hs ? w[(size_t)k * 4 * H + g * H + j0 + jj]
+                        : from_f32<T>(0.f);
+    Ws[mma ? (size_t)col * (H + 8) + k : i] = v;
+  }
+  for (int i = tid; i < B * hs_max; i += kThreads) hcar[i] = ccar[i] = 0.f;
+  __syncthreads();
+
+  const float* bd = bias + (size_t)d * 4 * H;
+  for (int s = 0; s < nt; ++s) {
+    const int t = rev ? nt - 1 - s : s;
+    const T* hprev = hx + ((size_t)((s + 1) & 1) * ndir + d) * B * H;
+    T* hnext = hx + ((size_t)(s & 1) * ndir + d) * B * H;
+    for (int r0 = 0; r0 < B; r0 += kRows) {
+      const int nr = min(kRows, B - r0);
+      const int nparts =
+          s > 0 ? product(hprev + (size_t)r0 * H, (size_t)H, H, Ws, ncol, As,
+                          part, nr, mma)
+                : 0;
+      for (int i = tid; i < nr * hs_max; i += kThreads) {
+        const int r = i / hs_max, jj = i - r * hs_max;
+        if (jj >= hs) continue;
+        const int b = r0 + r, j = j0 + jj, cell = b * hs_max + jj;
+        const size_t row = (size_t)t * B + b;
+        const T* xr = xp + row * G + (size_t)d * 4 * H + j;
+        float pre[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float acc = 0.f;
+          for (int q = 0; q < nparts; ++q)
+            acc += part[(q * kRows + r) * ncol + g * hs_max + jj];
+          pre[g] = (to_f32(xr[(size_t)g * H]) + bd[g * H + j]) + acc;
+        }
+        const float m = t < lengths[b] ? 1.f : 0.f;
+        const float ig = sigmoidf(pre[0]), fg = sigmoidf(pre[1]);
+        const float gg = tanhf(pre[2]), og = sigmoidf(pre[3]);
+        const float c_new = fg * ccar[cell] + ig * gg;
+        const float h_new = og * tanhf(c_new);
+        const float h = m * h_new + (1.f - m) * hcar[cell];
+        const float cv = m * c_new + (1.f - m) * ccar[cell];
+        hcar[cell] = h;
+        ccar[cell] = cv;
+        y[row * Y + (size_t)d * H + j] = from_f32<T>(h_new * m);
+        c[row * Y + (size_t)d * H + j] = cv;
+        T* gr = g4 + row * G + (size_t)d * 4 * H + j;
+        gr[0] = from_f32<T>(ig);
+        gr[H] = from_f32<T>(fg);
+        gr[2 * H] = from_f32<T>(gg);
+        gr[3 * H] = from_f32<T>(og);
+        hnext[(size_t)b * H + j] = from_f32<T>(h);
+      }
+    }
+    if (s + 1 < nt) dir_barrier(bar + d, (unsigned)(s + 1) * nb);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward.  c (T, B, ndir*H) f32 and g4 (T, B, ndir*4H) from the forward;
+// gy (T, B, ndir*H) the cotangent of y; dxp (T, B, ndir*4H) out; dbp
+// (B, ndir*4H) f32 partials out.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_bwd_kernel(const T* __restrict__ whh, const int* __restrict__ lengths,
+                const float* __restrict__ c, const T* __restrict__ g4,
+                const T* __restrict__ gy, T* dxp, float* __restrict__ dbp,
+                unsigned* bar, int nt, int B, int H, int hs_max, int nb,
+                int ndir, int rev_mask, int mma) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int d = blockIdx.x / nb, j0 = (blockIdx.x % nb) * hs_max;
+  const int hs = min(hs_max, H - j0);
+  const int ncol = hs_max;
+  const int rev = (rev_mask >> d) & 1;
+  const size_t G = (size_t)ndir * 4 * H, Y = (size_t)ndir * H;
+  T* Ws = reinterpret_cast<T*>(smem);  // the units' rows of W_hh
+  float* As = reinterpret_cast<float*>(smem + w_bytes<T>(4 * H, ncol));
+  float* part = As + a_floats<T>(4 * H);
+  float* dh = part + kThreads * kRows;  // [B][hs_max]
+  float* dc = dh + B * hs_max;
+  float* db = dc + B * hs_max;          // [B][hs_max][4]
+
+  const T* w = whh + (size_t)d * H * 4 * H;
+  for (int i = tid; i < 4 * H * hs_max; i += kThreads) {
+    const int k = i / hs_max, jj = i - k * hs_max;
+    const T v = jj < hs ? w[(size_t)(j0 + jj) * 4 * H + k] : from_f32<T>(0.f);
+    Ws[mma ? (size_t)jj * (4 * H + 8) + k : i] = v;
+  }
+  for (int i = tid; i < B * hs_max; i += kThreads) {
+    dh[i] = dc[i] = 0.f;
+    db[4 * i] = db[4 * i + 1] = db[4 * i + 2] = db[4 * i + 3] = 0.f;
+  }
+  __syncthreads();
+
+  for (int s = 0; s < nt; ++s) {
+    // opposite to the forward traversal; tp is the forward's previous step
+    const int t = rev ? s : nt - 1 - s;
+    const int tp = rev ? t + 1 : t - 1;
+    for (int i = tid; i < B * hs_max; i += kThreads) {
+      const int b = i / hs_max, jj = i - b * hs_max;
+      if (jj >= hs) continue;
+      const int j = j0 + jj;
+      const size_t row = (size_t)t * B + b;
+      const float m = t < lengths[b] ? 1.f : 0.f;
+      const T* gr = g4 + row * G + (size_t)d * 4 * H + j;
+      const float ig = to_f32(gr[0]), fg = to_f32(gr[H]);
+      const float gg = to_f32(gr[2 * H]), og = to_f32(gr[3 * H]);
+      const float ct = c[row * Y + (size_t)d * H + j];
+      const float cp = (tp >= 0 && tp < nt)
+                           ? c[((size_t)tp * B + b) * Y + (size_t)d * H + j]
+                           : 0.f;
+      const float tc = tanhf(ct);
+      const float da = m * (dh[i] + to_f32(gy[row * Y + (size_t)d * H + j]));
+      const float do_ = da * tc;
+      const float dc_new = da * og * (1.f - tc * tc) + m * dc[i];
+      const float di = dc_new * gg, df = dc_new * cp, dg = dc_new * ig;
+      const float dgi = di * ig * (1.f - ig);
+      const float dgf = df * fg * (1.f - fg);
+      const float dgg = dg * (1.f - gg * gg);
+      const float dgo = do_ * og * (1.f - og);
+      T* dr = dxp + row * G + (size_t)d * 4 * H + j;
+      dr[0] = from_f32<T>(dgi);
+      dr[H] = from_f32<T>(dgf);
+      dr[2 * H] = from_f32<T>(dgg);
+      dr[3 * H] = from_f32<T>(dgo);
+      db[4 * i] += dgi;
+      db[4 * i + 1] += dgf;
+      db[4 * i + 2] += dgg;
+      db[4 * i + 3] += dgo;
+      dh[i] = (1.f - m) * dh[i];
+      dc[i] = (1.f - m) * dc[i] + dc_new * fg;
+    }
+    if (s + 1 == nt) break;
+    dir_barrier(bar + d, (unsigned)(s + 1) * nb);
+    // dh += dgates_t W_hh^T for this block's units, dgates_t read from dxp
+    for (int r0 = 0; r0 < B; r0 += kRows) {
+      const int nr = min(kRows, B - r0);
+      const int nparts =
+          product(dxp + ((size_t)t * B + r0) * G + (size_t)d * 4 * H, G,
+                  4 * H, Ws, ncol, As, part, nr, mma);
+      for (int i = tid; i < nr * hs_max; i += kThreads) {
+        const int r = i / hs_max, jj = i - r * hs_max;
+        if (jj >= hs) continue;
+        float acc = 0.f;
+        for (int q = 0; q < nparts; ++q)
+          acc += part[(q * kRows + r) * ncol + jj];
+        dh[(r0 + r) * hs_max + jj] += acc;
+      }
+    }
+    __syncthreads();  // dh is read under another thread mapping next step
+  }
+  for (int i = tid; i < B * hs_max; i += kThreads) {
+    const int b = i / hs_max, jj = i - b * hs_max;
+    if (jj >= hs) continue;
+    float* out = dbp + (size_t)b * G + (size_t)d * 4 * H + j0 + jj;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) out[(size_t)g * H] = db[4 * i + g];
+  }
+}
+
+// Hidden units per block and blocks per direction.
+inline int split_units(int H, int* hs) {
+  *hs = (H + kMaxBlocksPerDir - 1) / kMaxBlocksPerDir;
+  return (H + *hs - 1) / *hs;
+}
+
+cudaError_t cooperative_launch(const void* kern, int grid, size_t smem,
+                               void** args, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                  dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, kThreads, smem)) != cudaSuccess)
+    return e;
+  if (!coop || per_sm * sms < grid) return cudaErrorCooperativeLaunchTooLarge;
+  e = cudaLaunchCooperativeKernel(kern, dim3((unsigned)grid), dim3(kThreads),
+                                  args, smem, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// The tensor-core product takes bf16 slices of 8, 16 or 32 columns and
+// rows of a multiple of 16 values (16-byte copies, whole k-steps).
+template <typename T>
+int use_mma(int H, int ncol) {
+  return std::is_same<T, __nv_bfloat16>::value && H % 16 == 0 &&
+         (ncol == 8 || ncol == 16 || ncol == 32);
+}
+
+template <typename T>
+int fwd_launch(const T* xp, const T* whh, const float* bias,
+               const int* lengths, T* y, float* c, T* g4, T* hx,
+               unsigned* bar, int nt, int B, int H, int ndir, int rev_mask,
+               cudaStream_t stream) {
+  int hs = 0;
+  int nb = split_units(H, &hs);
+  int mma = use_mma<T>(H, 4 * hs);
+  void* args[] = {&xp, &whh, &bias, &lengths, &y,  &c,  &g4,   &hx,      &bar,
+                  &nt, &B,   &H,    &hs,      &nb, &ndir, &rev_mask, &mma};
+  return (int)cooperative_launch(
+      reinterpret_cast<const void*>(&lstm_fwd_kernel<T>), ndir * nb,
+      smem_bytes<T>(H, 4 * hs, hs, B, 2), args, stream);
+}
+
+template <typename T>
+int bwd_launch(const T* whh, const int* lengths, const float* c, const T* g4,
+               const T* gy, T* dxp, float* dbp, unsigned* bar, int nt, int B,
+               int H, int ndir, int rev_mask, cudaStream_t stream) {
+  int hs = 0;
+  int nb = split_units(H, &hs);
+  int mma = use_mma<T>(H, hs);
+  void* args[] = {&whh, &lengths, &c,  &g4, &gy,   &dxp,      &dbp, &bar,
+                  &nt,  &B,       &H,  &hs, &nb,   &ndir, &rev_mask, &mma};
+  return (int)cooperative_launch(
+      reinterpret_cast<const void*>(&lstm_bwd_kernel<T>), ndir * nb,
+      smem_bytes<T>(4 * H, hs, hs, B, 6), args, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* lstm_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+int lstm_fwd_scan(const void* xp, const void* whh, const float* bias,
+                  const int* lengths, void* y, float* c, void* g4, void* hx,
+                  unsigned* bar, int T, int B, int H, int ndir, int rev_mask,
+                  int bf16, void* stream) {
+  if (T == 0 || B == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return fwd_launch<__nv_bfloat16>(
+        (const __nv_bfloat16*)xp, (const __nv_bfloat16*)whh, bias, lengths,
+        (__nv_bfloat16*)y, c, (__nv_bfloat16*)g4, (__nv_bfloat16*)hx, bar, T,
+        B, H, ndir, rev_mask, s);
+  return fwd_launch<float>((const float*)xp, (const float*)whh, bias, lengths,
+                           (float*)y, c, (float*)g4, (float*)hx, bar, T, B, H,
+                           ndir, rev_mask, s);
+}
+
+int lstm_bwd_scan(const void* whh, const int* lengths, const float* c,
+                  const void* g4, const void* gy, void* dxp, float* dbp,
+                  unsigned* bar, int T, int B, int H, int ndir, int rev_mask,
+                  int bf16, void* stream) {
+  if (T == 0 || B == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return bwd_launch<__nv_bfloat16>(
+        (const __nv_bfloat16*)whh, lengths, c, (const __nv_bfloat16*)g4,
+        (const __nv_bfloat16*)gy, (__nv_bfloat16*)dxp, dbp, bar, T, B, H, ndir,
+        rev_mask, s);
+  return bwd_launch<float>((const float*)whh, lengths, c, (const float*)g4,
+                           (const float*)gy, (float*)dxp, dbp, bar, T, B, H,
+                           ndir, rev_mask, s);
+}
+
+}  // extern "C"

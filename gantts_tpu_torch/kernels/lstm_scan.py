@@ -1,0 +1,345 @@
+"""The LSTM recurrence, one or two directions of one layer per launch:
+hand-written CUDA kernels for Hopper, their plain PyTorch versions, and the
+autograd Functions around them.
+
+Counterpart of gantts_tpu/kernels/lstm_scan.py.  Two kernels, built from
+``csrc/lstm_scan.cu`` at first use (see that file's note for what bounds
+them on the card and what their design does about it):
+
+  ``lstm_fwd_scan``  gates, masked h/c carries, y, c and the activated gates
+                     g4 from xp = x @ W_ih (replaces the recurrence of
+                     ``_lstm_fwd_kernel``, ``_plstm_fwd_kernel`` and
+                     ``_bilstm_fwd_kernel``);
+  ``lstm_bwd_scan``  masked BPTT from the stored gates: dxp (= dgates) and
+                     the bias gradient (replaces ``_lstm_bwd_kernel`` and
+                     ``_bilstm_bwd_kernel``).
+
+The input projection, which the TPU kernels run inside their bodies, is the
+port's ``sru_proj_gemm`` (the counterpart of ``_proj_u``), one launch over
+both directions' concatenated W_ih.  dW_hh, dx and dW_ih stay library
+matmuls (``mm_f32``), as the JAX package leaves them to XLA.
+
+Each wrapper takes the plain version when, and only when, its tensors lie on
+the CPU.  A CUDA tensor goes to the kernel; anything the kernel does not take
+raises, and so does a failed build or launch.  Each launch adds one to
+``launch_counts[name]``, the dict shared with ``sru_scan``.
+
+Layout is time-major, with the ``ndir`` directions (1 or 2) side by side on
+the last axis: xp, g4 and dxp are (T, B, ndir*4H), direction d's gate blocks
+[i | f | g | o] (torch's order) at [d*4H, (d+1)*4H); y, c and the cotangent
+of y are (T, B, ndir*H).  W_hh is (ndir, H, 4H) in the I/O dtype, the summed
+bias b_ih + b_hh (ndir, 4H) float32, lengths (B,) int32, and ``reverse`` one
+flag per direction.  I/O is float32 or bfloat16; the carries, c, the gate
+math, the bias and its gradient are float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from gantts_tpu_torch.kernels.sru_scan import (
+    IO_DTYPES,
+    _on_cpu,
+    _require,
+    _stream,
+    io_dtype,
+    launch_counts,
+    mm_f32,
+    reset_launch_counts,
+    sru_proj_gemm,
+)
+
+launch_counts.update(lstm_fwd_scan=0, lstm_bwd_scan=0)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the CPU path, and what the kernels are held to on the card.
+# ---------------------------------------------------------------------------
+
+
+def lstm_fwd_scan_plain(xp, whh, bias, lengths, reverse):
+    """Returns y (T, B, ndir*H) and g4 (T, B, ndir*4H) in xp's dtype, and c
+    (T, B, ndir*H) float32.
+
+    A Python loop over T with exactly the kernel's cell math: pre = (xp_t +
+    b) + h_{t-1} @ W_hh, with h cast to W_hh's dtype and f32 accumulation."""
+    T, B, _ = xp.shape
+    ndir, H = whh.shape[:2]
+    lengths = lengths.to(xp.device)
+    ys, cs, gs = [], [], []
+    for d in range(ndir):
+        xpd, w, b = xp[..., 4 * H * d:4 * H * (d + 1)], whh[d], bias[d].float()
+        h = torch.zeros((B, H), dtype=torch.float32, device=xp.device)
+        c = h
+        y_t, c_t, g_t = [None] * T, [None] * T, [None] * T
+        for s in range(T):
+            t = T - 1 - s if reverse[d] else s
+            m = (t < lengths).float()[:, None]
+            pre = xpd[t].float() + b + mm_f32(h.to(w.dtype), w)
+            ig = torch.sigmoid(pre[:, :H])
+            fg = torch.sigmoid(pre[:, H:2 * H])
+            gg = torch.tanh(pre[:, 2 * H:3 * H])
+            og = torch.sigmoid(pre[:, 3 * H:])
+            c_new = fg * c + ig * gg
+            h_new = og * torch.tanh(c_new)
+            h = m * h_new + (1.0 - m) * h
+            c = m * c_new + (1.0 - m) * c
+            y_t[t] = (h_new * m).to(xp.dtype)
+            c_t[t] = c
+            g_t[t] = torch.cat([ig, fg, gg, og], dim=-1).to(xp.dtype)
+        ys.append(torch.stack(y_t))
+        cs.append(torch.stack(c_t))
+        gs.append(torch.stack(g_t))
+    return torch.cat(ys, -1), torch.cat(cs, -1), torch.cat(gs, -1)
+
+
+def lstm_bwd_scan_plain(whh, lengths, c, g4, gy, reverse):
+    """Returns dxp (T, B, ndir*4H) in g4's dtype and db (ndir, 4H) float32.
+
+    Walks T opposite to each direction's forward traversal.  c_{t-1} is read
+    from c at the forward's previous step (zero at its start); the carried
+    dh takes dxp_t @ W_hh^T with dxp_t in its stored dtype.  The bias
+    gradient is summed per (b, column) over T, then over B, in the kernel's
+    order."""
+    T, B, _ = g4.shape
+    ndir, H = whh.shape[:2]
+    lengths = lengths.to(g4.device)
+    dxps, dbs = [], []
+    for d in range(ndir):
+        w = whh[d]
+        g4d = g4[..., 4 * H * d:4 * H * (d + 1)]
+        cd, gyd = c[..., H * d:H * (d + 1)], gy[..., H * d:H * (d + 1)]
+        dh = torch.zeros((B, H), dtype=torch.float32, device=g4.device)
+        dc, zeros = dh, dh
+        db = torch.zeros((B, 4 * H), dtype=torch.float32, device=g4.device)
+        dxp = [None] * T
+        for s in range(T):
+            t = s if reverse[d] else T - 1 - s
+            tp = t + 1 if reverse[d] else t - 1
+            m = (t < lengths).float()[:, None]
+            gates = g4d[t].float()
+            ig, fg = gates[:, :H], gates[:, H:2 * H]
+            gg, og = gates[:, 2 * H:3 * H], gates[:, 3 * H:]
+            cp = cd[tp] if 0 <= tp < T else zeros
+            tc = torch.tanh(cd[t])
+            da = m * (dh + gyd[t].float())
+            do_ = da * tc
+            dc_new = da * og * (1.0 - tc * tc) + m * dc
+            di, df, dg = dc_new * gg, dc_new * cp, dc_new * ig
+            dgates = torch.cat([di * ig * (1.0 - ig), df * fg * (1.0 - fg),
+                                dg * (1.0 - gg * gg), do_ * og * (1.0 - og)],
+                               dim=-1)
+            dxp[t] = dgates.to(g4.dtype)
+            db = db + dgates
+            dh = (1.0 - m) * dh + mm_f32(dxp[t].to(w.dtype), w.t())
+            dc = (1.0 - m) * dc + dc_new * fg
+        dxps.append(torch.stack(dxp))
+        dbs.append(db.sum(0))
+    return torch.cat(dxps, -1), torch.stack(dbs)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    from gantts_tpu_torch.kernels._build import load_library
+
+    lib = load_library("lstm_scan")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_error_string.argtypes = [I]
+    lib.lstm_error_string.restype = ctypes.c_char_p
+    lib.lstm_fwd_scan.argtypes = [P] * 9 + [I] * 6 + [P]
+    lib.lstm_bwd_scan.argtypes = [P] * 8 + [I] * 6 + [P]
+    for fn in (lib.lstm_fwd_scan, lib.lstm_bwd_scan):
+        fn.restype = I
+    return lib
+
+
+def _launched(name, code):
+    if code != 0:
+        msg = _lib().lstm_error_string(code).decode()
+        raise RuntimeError(f"{name}: launch failed ({code}: {msg})")
+    launch_counts[name] += 1
+
+
+def _rev_mask(name, reverse, ndir):
+    if ndir not in (1, 2) or len(reverse) != ndir:
+        raise ValueError(f"{name}: {ndir} directions with reverse flags "
+                         f"{reverse}; expected 1 or 2 directions, one flag "
+                         f"each")
+    return sum(int(bool(r)) << d for d, r in enumerate(reverse))
+
+
+def lstm_fwd_scan(xp, whh, bias, lengths, reverse):
+    """(xp, W_hh, bias, lengths, reverse) -> (y, c float32, g4); see the
+    module docstring for the layouts."""
+    if _on_cpu(xp, whh, bias, lengths):
+        return lstm_fwd_scan_plain(xp, whh, bias, lengths, reverse)
+    name, dev = "lstm_fwd_scan", xp.device
+    T, B, _ = xp.shape
+    ndir, H = whh.shape[:2]
+    mask = _rev_mask(name, reverse, ndir)
+    _require(name, xp, "xp", dev, IO_DTYPES, (T, B, ndir * 4 * H))
+    _require(name, whh, "whh", dev, (xp.dtype,), (ndir, H, 4 * H))
+    _require(name, bias, "bias", dev, (torch.float32,), (ndir, 4 * H))
+    _require(name, lengths, "lengths", dev, (torch.int32,), (B,))
+    y = torch.empty((T, B, ndir * H), dtype=xp.dtype, device=dev)
+    c = torch.empty((T, B, ndir * H), dtype=torch.float32, device=dev)
+    g4 = torch.empty((T, B, ndir * 4 * H), dtype=xp.dtype, device=dev)
+    hx = torch.empty((2, ndir, B, H), dtype=xp.dtype, device=dev)
+    bar = torch.zeros(ndir, dtype=torch.int32, device=dev)
+    _launched(name, _lib().lstm_fwd_scan(
+        xp.data_ptr(), whh.data_ptr(), bias.data_ptr(), lengths.data_ptr(),
+        y.data_ptr(), c.data_ptr(), g4.data_ptr(), hx.data_ptr(),
+        bar.data_ptr(), T, B, H, ndir, mask,
+        int(xp.dtype == torch.bfloat16), _stream(dev)))
+    return y, c, g4
+
+
+def lstm_bwd_scan(whh, lengths, c, g4, gy, reverse):
+    """-> (dxp in g4's dtype, db float32 (ndir, 4H)).  ``gy`` is the
+    cotangent of y in g4's dtype; ``reverse`` the forward layer's flags."""
+    if _on_cpu(whh, lengths, c, g4, gy):
+        return lstm_bwd_scan_plain(whh, lengths, c, g4, gy, reverse)
+    name, dev = "lstm_bwd_scan", g4.device
+    T, B, _ = g4.shape
+    ndir, H = whh.shape[:2]
+    mask = _rev_mask(name, reverse, ndir)
+    _require(name, g4, "g4", dev, IO_DTYPES, (T, B, ndir * 4 * H))
+    _require(name, whh, "whh", dev, (g4.dtype,), (ndir, H, 4 * H))
+    _require(name, lengths, "lengths", dev, (torch.int32,), (B,))
+    _require(name, c, "c", dev, (torch.float32,), (T, B, ndir * H))
+    _require(name, gy, "gy", dev, (g4.dtype,), (T, B, ndir * H))
+    dxp = torch.empty((T, B, ndir * 4 * H), dtype=g4.dtype, device=dev)
+    dbp = torch.empty((B, ndir * 4 * H), dtype=torch.float32, device=dev)
+    bar = torch.zeros(ndir, dtype=torch.int32, device=dev)
+    _launched(name, _lib().lstm_bwd_scan(
+        whh.data_ptr(), lengths.data_ptr(), c.data_ptr(), g4.data_ptr(),
+        gy.data_ptr(), dxp.data_ptr(), dbp.data_ptr(), bar.data_ptr(),
+        T, B, H, ndir, mask, int(g4.dtype == torch.bfloat16), _stream(dev)))
+    return dxp, dbp.sum(0).reshape(ndir, 4 * H)
+
+
+# ---------------------------------------------------------------------------
+# Autograd and the public layer functions
+# ---------------------------------------------------------------------------
+
+
+def _shifted_dwhh(y, dxp, d, H, layer_rev):
+    """dW_hh of direction d = sum_t h_{t-1}^T @ dgates_t as one matmul.
+
+    h_{t-1} in the forward's traversal order is y[t-1] for a forward layer
+    and y[t+1] for a reversed one (zero at the traversal start, whose term
+    is dropped).  y equals that carry wherever dgates is not zero."""
+    T = y.shape[0]
+    yd = y[..., H * d:H * (d + 1)]
+    gd = dxp[..., 4 * H * d:4 * H * (d + 1)]
+    h_prev, dg = (yd[1:], gd[:T - 1]) if layer_rev else (yd[:T - 1], gd[1:])
+    return mm_f32(h_prev.reshape(-1, H).t(), dg.reshape(-1, 4 * H))
+
+
+class _ProjGemm(torch.autograd.Function):
+    """xp = x @ w through ``sru_proj_gemm``: f32 accumulation, xp in x's
+    dtype.  w arrives in its parameter dtype and is cast inside, so dW stays
+    in the parameter dtype (float32)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        T, B, D = x.shape
+        w_c = w.to(x.dtype).contiguous()
+        xp = sru_proj_gemm(x.reshape(T * B, D), w_c).reshape(T, B, -1)
+        ctx.save_for_backward(x, w_c)
+        ctx.w_dtype = w.dtype
+        return xp
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_c = ctx.saved_tensors
+        T, B, D = x.shape
+        g2 = g.to(x.dtype).reshape(T * B, -1)
+        dx = dw = None
+        # library matmuls, as the JAX package leaves them to XLA
+        if ctx.needs_input_grad[0]:
+            dx = mm_f32(g2, w_c.t()).reshape(T, B, D).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = mm_f32(x.reshape(T * B, D).t(), g2).to(ctx.w_dtype)
+        return dx, dw
+
+
+class _LSTMScan(torch.autograd.Function):
+    """y = the masked recurrence from xp, for ndir directions.  W_hh arrives
+    in its parameter dtype and is cast to xp's inside, so dW_hh stays in the
+    parameter dtype (float32)."""
+
+    @staticmethod
+    def forward(ctx, xp, whh, bias, lengths, reverse):
+        whh_c = whh.to(xp.dtype).contiguous()
+        y, c, g4 = lstm_fwd_scan(xp, whh_c, bias, lengths, reverse)
+        ctx.save_for_backward(whh_c, lengths, y, c, g4)
+        ctx.reverse, ctx.w_dtype = reverse, whh.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        whh_c, lengths, y, c, g4 = ctx.saved_tensors
+        dxp, db = lstm_bwd_scan(whh_c, lengths, c, g4,
+                                gy.to(g4.dtype).contiguous(), ctx.reverse)
+        H = whh_c.shape[1]
+        dwhh = torch.stack([_shifted_dwhh(y, dxp, d, H, rev)
+                            for d, rev in enumerate(ctx.reverse)])
+        return dxp, dwhh.to(ctx.w_dtype), db, None, None
+
+
+def _lengths(lengths, device):
+    return torch.as_tensor(lengths, device=device).to(torch.int32).contiguous()
+
+
+def lstm_proj_layer(x, params, lengths, reverse, compute_dtype="float32"):
+    """One LSTM layer, all its directions in one projection GEMM and one
+    scan launch: x (T, B, D); ``params`` one dict per direction with
+    ``w_ih`` (D, 4H), ``w_hh`` (H, 4H) and ``bias`` (4H,), the summed
+    b_ih + b_hh, in their parameter dtype; ``reverse`` one flag per
+    direction.  Returns y (T, B, ndir*H) in the compute I/O dtype, the
+    directions side by side, zero on padded frames.  dx comes back in x's
+    dtype."""
+    x = x.to(io_dtype(compute_dtype)).contiguous()
+    w_ih = torch.cat([p["w_ih"] for p in params], dim=-1)
+    xp = _ProjGemm.apply(x, w_ih)
+    whh = torch.stack([p["w_hh"] for p in params])
+    bias = torch.stack([p["bias"].float() for p in params])
+    return _LSTMScan.apply(xp, whh, bias, _lengths(lengths, x.device),
+                           tuple(bool(r) for r in reverse))
+
+
+def fused_bilstm_proj_layer(x, params_fwd, params_bwd, lengths,
+                            compute_dtype="float32"):
+    """Both directions of one bidirectional layer in one launch each of the
+    GEMM (over [W_ih_fwd | W_ih_bwd]) and the scan.  Returns (y_fwd, y_bwd),
+    each (T, B, H) in the compute I/O dtype, views of one (T, B, 2H)."""
+    y = lstm_proj_layer(x, [params_fwd, params_bwd], lengths, (False, True),
+                        compute_dtype)
+    H = params_fwd["w_hh"].shape[0]
+    return y[..., :H], y[..., H:]
+
+
+def fused_lstm_proj_layer(x, w_ih, w_hh, bias, lengths, reverse=False,
+                          compute_dtype="float32"):
+    """One LSTM layer direction from the raw input x (T, B, D).  Returns
+    y (T, B, H) in the compute I/O dtype, zero on padded frames."""
+    return lstm_proj_layer(x, [dict(w_ih=w_ih, w_hh=w_hh, bias=bias)],
+                           lengths, (reverse,), compute_dtype)
+
+
+def fused_lstm_layer(xp, w_hh, bias, lengths, reverse=False):
+    """One LSTM layer direction from xp = x @ W_ih (T, B, 4H), float32 or
+    bfloat16; w_hh (H, 4H) in its parameter dtype; bias (4H,) the summed
+    b_ih + b_hh.  Returns y (T, B, H) in xp's dtype, zero on padded
+    frames."""
+    return _LSTMScan.apply(xp.contiguous(), w_hh[None], bias.float()[None],
+                           _lengths(lengths, xp.device), (bool(reverse),))

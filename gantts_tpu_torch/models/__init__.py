@@ -1,8 +1,9 @@
 """Model registry (counterpart of gantts_tpu/models/__init__.py).
 
-Ported so far: ``MLP`` (the per-frame discriminator) and ``SRURNN`` (the TTS
-generator).  Module and parameter names follow the JAX package's scopes, so
-``convert.py`` maps parameters one to one.  Every module takes an explicit
+Ported so far: ``MLP`` (the per-frame discriminator), ``SRURNN`` (the TTS
+generator) and the LSTM family, ``LSTMRNN`` and ``GRURNN``.  Module and
+parameter names follow the JAX package's scopes, so ``convert.py`` maps
+parameters one to one.  Every module takes an explicit
 ``device`` and draws its init from an explicit ``torch.Generator``; dropout
 runs in training mode only, from the generator passed to ``forward``.
 """
@@ -12,17 +13,9 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from gantts_tpu_torch.models.common import TorchLinear, leaky_relu
+from gantts_tpu_torch.models.common import TorchLinear, _dropout, leaky_relu
+from gantts_tpu_torch.models.recurrent import StackedLSTM
 from gantts_tpu_torch.models.sru import SRU
-
-
-def _dropout(x, rate, training, generator):
-    """Per-element dropout (flax ``nn.Dropout``: kept values scaled 1/keep)."""
-    if not training or rate <= 0.0:
-        return x
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class MLP(nn.Module):
@@ -78,6 +71,36 @@ class SRURNN(nn.Module):
         return torch.sigmoid(h) if self.last_sigmoid else h
 
 
+class LSTMRNN(nn.Module):
+    """(Bi)LSTM stack scoped ``lstm`` and a linear head ``hidden2out``."""
+
+    include_parameter_generation = False
+    scope = "lstm"
+
+    def __init__(self, in_dim=118, out_dim=118, num_hidden=2, hidden_dim=256,
+                 bidirectional=False, dropout=0.0, last_sigmoid=False,
+                 compute_dtype="float32", generator=None, device=None):
+        super().__init__()
+        self.last_sigmoid = last_sigmoid
+        self.add_module(self.scope, StackedLSTM(
+            in_dim, hidden_dim, num_hidden, bidirectional, dropout,
+            compute_dtype, generator, device))
+        dirs = 2 if bidirectional else 1
+        self.hidden2out = TorchLinear(hidden_dim * dirs, out_dim, "float32",
+                                      generator, device)
+
+    def forward(self, x, lengths=None, generator=None):
+        h = getattr(self, self.scope)(x, lengths, generator=generator)
+        h = self.hidden2out(h)
+        return torch.sigmoid(h) if self.last_sigmoid else h
+
+
+class GRURNN(LSTMRNN):
+    """Misnamed in the reference: an LSTM, scoped ``gru``."""
+
+    scope = "gru"
+
+
 def _not_ported(name, item):
     def build(**_params):
         raise NotImplementedError(
@@ -92,9 +115,9 @@ MODEL_REGISTRY = {
     "In2OutHighwayNet": _not_ported("In2OutHighwayNet",
                                     "queue 1 item 10, VC path"),
     "In2OutRNNHighwayNet": _not_ported("In2OutRNNHighwayNet",
-                                       "queue 1 item 8, LSTM family"),
-    "GRURNN": _not_ported("GRURNN", "queue 1 item 8, LSTM family"),
-    "LSTMRNN": _not_ported("LSTMRNN", "queue 1 item 8, LSTM family"),
+                                       "queue 1 item 10, VC path"),
+    "GRURNN": GRURNN,
+    "LSTMRNN": LSTMRNN,
 }
 
 

@@ -86,6 +86,15 @@ class TorchLinear(nn.Module):
             + self.bias
 
 
+def _dropout(x, rate, training, generator):
+    """Per-element dropout (flax ``nn.Dropout``: kept values scaled 1/keep)."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 def leaky_relu(x):
     """torch.nn.LeakyReLU's default negative_slope of 0.01."""
     return F.leaky_relu(x, negative_slope=0.01)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from gantts_tpu_torch.kernels import lstm_scan  # noqa: F401  (its counters)
 from gantts_tpu_torch.kernels import sru_scan as K
 
 pytestmark = pytest.mark.gpu
@@ -74,7 +75,8 @@ def test_kernels_match_plain_versions(cuda, dt, reverse, use_relu, D):
     assert _rel(du_k, du_p) < tol and _rel(db_k, db_p) < 1e-4
     torch.cuda.synchronize()
     assert dict(K.launch_counts) == {"sru_proj_gemm": 1, "sru_fwd_scan": 1,
-                                     "sru_bwd_scan": 1}
+                                     "sru_bwd_scan": 1, "lstm_fwd_scan": 0,
+                                     "lstm_bwd_scan": 0}
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -112,7 +114,8 @@ def test_srurnn_step_launches_every_kernel(cuda):
     assert y.shape == (B, T, 7) and torch.isfinite(y).all()
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
     assert dict(K.launch_counts) == {"sru_proj_gemm": 4, "sru_fwd_scan": 4,
-                                     "sru_bwd_scan": 4}
+                                     "sru_bwd_scan": 4, "lstm_fwd_scan": 0,
+                                     "lstm_bwd_scan": 0}
 
 
 @pytest.mark.parametrize("K_, N_", [(425, 2048), (70, 180), (64, 192)])
@@ -130,3 +133,140 @@ def test_proj_gemm_pads_what_its_loads_cannot_take(cuda, K_, N_):
         u = K.sru_proj_gemm(x2, w)
         assert u.shape == (M, N_) and u.is_contiguous()
         assert _rel(u, K.sru_proj_gemm_plain(x2, w)) < TOL[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------------
+# LSTM kernels.  Shapes as tests/test_kernels.py's: T=21, B=3, H=9 with
+# lengths [21, 13, 5] (one block per hidden unit, H not a multiple of
+# anything), and the step's H=512 (64 blocks per direction, 8 units each).
+# Limits as above; c is f32, but in bf16 I/O it is fed by the bf16-rounded h
+# of earlier steps, so it is held to the bf16 limit there.
+# ---------------------------------------------------------------------------
+
+LSTM_CASES = [(False, True), (False,), (True,)]
+
+
+def _lstm_inputs(dev, dt, ndir, Tn, Bn, Hn, seed=0):
+    rs = np.random.RandomState(seed)
+    bound = 1.0 / Hn ** 0.5
+    xp = torch.tensor(rs.randn(Tn, Bn, ndir * 4 * Hn) * 0.5, dtype=dt,
+                      device=dev)
+    whh = torch.tensor(rs.uniform(-bound, bound, (ndir, Hn, 4 * Hn)),
+                       dtype=dt, device=dev)
+    bias = torch.tensor(rs.uniform(-bound, bound, (ndir, 4 * Hn)),
+                        dtype=torch.float32, device=dev)
+    lengths = (torch.tensor([21, 13, 5], dtype=torch.int32, device=dev)
+               if Bn == 3 else torch.tensor(
+                   np.r_[rs.randint(Tn // 2, Tn, Bn - 1), Tn],
+                   dtype=torch.int32, device=dev))
+    gy = torch.tensor(rs.randn(Tn, Bn, ndir * Hn), dtype=dt, device=dev)
+    return xp, whh, bias, lengths, gy
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", LSTM_CASES)
+@pytest.mark.parametrize("Tn,Bn,Hn", [(21, 3, 9), (64, 20, 512)])
+def test_lstm_kernels_match_plain_versions(cuda, dt, reverse, Tn, Bn, Hn):
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    xp, whh, bias, lengths, gy = _lstm_inputs(cuda, dt, len(reverse), Tn, Bn,
+                                              Hn)
+    tol = TOL[dt]
+    L.reset_launch_counts()
+    y_k, c_k, g4_k = L.lstm_fwd_scan(xp, whh, bias, lengths, reverse)
+    y_p, c_p, g4_p = L.lstm_fwd_scan_plain(xp, whh, bias, lengths, reverse)
+    assert y_k.dtype == dt and g4_k.dtype == dt and c_k.dtype == torch.float32
+    assert _rel(y_k, y_p) < tol and _rel(g4_k, g4_p) < tol
+    assert _rel(c_k, c_p) < (1e-4 if dt == torch.float32 else tol)
+    pad = (torch.arange(Tn, device=cuda)[:, None] >= lengths[None, :])
+    assert (y_k[pad] == 0).all()
+    dxp_k, db_k = L.lstm_bwd_scan(whh, lengths, c_p, g4_p, gy, reverse)
+    dxp_p, db_p = L.lstm_bwd_scan_plain(whh, lengths, c_p, g4_p, gy, reverse)
+    assert _rel(dxp_k, dxp_p) < tol and _rel(db_k, db_p) < 1e-3
+    assert (dxp_k[pad] == 0).all()
+    torch.cuda.synchronize()
+    assert L.launch_counts["lstm_fwd_scan"] == 1
+    assert L.launch_counts["lstm_bwd_scan"] == 1
+
+
+@pytest.mark.parametrize("bidirectional", [True, False])
+def test_lstm_layer_on_card_matches_cpu(cuda, bidirectional):
+    """lstm_proj_layer forward and backward, f32: the card's kernels against
+    the CPU's plain versions, every gradient."""
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    reverse = (False, True) if bidirectional else (True,)
+    results = []
+    for dev in (torch.device("cpu"), cuda):
+        rs = np.random.RandomState(3)
+        x = torch.tensor(rs.randn(21, 3, D), dtype=torch.float32, device=dev,
+                         requires_grad=True)
+        params = [{k: torch.tensor(rs.randn(*s) * 0.3, dtype=torch.float32,
+                                   device=dev, requires_grad=True)
+                   for k, s in (("w_ih", (D, 36)), ("w_hh", (9, 36)),
+                                ("bias", (36,)))} for _ in reverse]
+        lengths = torch.tensor([21, 13, 5], dtype=torch.int32)
+        y = L.lstm_proj_layer(x, params, lengths, reverse)
+        gy = torch.tensor(rs.randn(*y.shape), dtype=torch.float32, device=dev)
+        y.backward(gy)
+        results.append([y, x.grad] + [p[k].grad for p in params
+                                      for k in ("w_ih", "w_hh", "bias")])
+    for got, ref in zip(results[1], results[0]):
+        assert _rel(got.cpu(), ref) < 1e-4
+
+
+def test_lstmrnn_step_launches_every_kernel(cuda):
+    """A 2-layer bidirectional LSTMRNN forward and backward on the card
+    goes through the GEMM and each scan once per layer, both directions in
+    one launch."""
+    from gantts_tpu_torch.models import LSTMRNN
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    model = LSTMRNN(in_dim=D, out_dim=7, num_hidden=2, hidden_dim=H,
+                    bidirectional=True, dropout=0.2,
+                    compute_dtype="bfloat16", generator=gen,
+                    device=cuda).train()
+    x, _, _, lengths, _ = _inputs(cuda, torch.float32)
+    K.reset_launch_counts()
+    y = model(x.transpose(0, 1), lengths, generator=gen)
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    assert y.shape == (B, T, 7) and torch.isfinite(y).all()
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+    assert dict(K.launch_counts) == {
+        "sru_proj_gemm": 2, "sru_fwd_scan": 0, "sru_bwd_scan": 0,
+        "lstm_fwd_scan": 2, "lstm_bwd_scan": 2}
+
+
+def test_lstm_forward_matches_cudnn(cuda):
+    """An extra oracle, f32: one bidirectional layer against torch.nn.LSTM
+    over pack_padded_sequence (cuDNN), with the weights transposed and the
+    two biases kept."""
+    from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    rs = np.random.RandomState(4)
+    Hn, Tn = 32, 40
+    ref = torch.nn.LSTM(D, Hn, bidirectional=True).to(cuda)
+    x = torch.tensor(rs.randn(Tn, B, D), dtype=torch.float32, device=cuda)
+    lengths = torch.tensor(np.r_[rs.randint(5, Tn, B - 1), Tn],
+                           dtype=torch.int32)
+    params = []
+    for sfx in ("", "_reverse"):
+        g = {n: getattr(ref, f"{n}_l0{sfx}").detach()
+             for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
+        params.append(dict(w_ih=g["weight_ih"].t().contiguous(),
+                           w_hh=g["weight_hh"].t().contiguous(),
+                           bias=g["bias_ih"] + g["bias_hh"]))
+    allow_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            y = L.lstm_proj_layer(x, params, lengths, (False, True))
+            packed = pack_padded_sequence(x, lengths, enforce_sorted=False)
+            y_ref, _ = pad_packed_sequence(ref(packed)[0], total_length=Tn)
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow_tf32
+    assert _rel(y, y_ref) < 1e-5

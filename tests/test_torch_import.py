@@ -21,8 +21,10 @@ MODULES = [
     "gantts_tpu_torch.core",
     "gantts_tpu_torch.kernels",
     "gantts_tpu_torch.kernels._build",
+    "gantts_tpu_torch.kernels.lstm_scan",
     "gantts_tpu_torch.kernels.sru_scan",
     "gantts_tpu_torch.models",
+    "gantts_tpu_torch.models.recurrent",
     "gantts_tpu_torch.train",
     "gantts_tpu_torch.train.metrics",
     "gantts_tpu_torch.train.optim",
@@ -57,10 +59,11 @@ def test_kernel_modules_import_without_cuda():
     """Importing the kernel modules builds nothing and loads no library:
     nvcc is reached only when a CUDA tensor reaches a wrapper."""
     proc = _run(
-        "from gantts_tpu_torch.kernels import _build, sru_scan\n"
-        "print(_build.build_log, sru_scan._lib.cache_info().currsize)\n")
+        "from gantts_tpu_torch.kernels import _build, lstm_scan, sru_scan\n"
+        "print(_build.build_log, sru_scan._lib.cache_info().currsize,\n"
+        "      lstm_scan._lib.cache_info().currsize)\n")
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "{} 0", proc.stdout
+    assert proc.stdout.strip() == "{} 0 0", proc.stdout
 
 
 def test_port_sources_name_no_jax():
@@ -95,6 +98,20 @@ def test_wrappers_take_plain_versions_only_on_cpu():
     K.sru_proj_gemm(torch.randn(4, 6), torch.randn(6, 8))
     assert du.shape == u.shape and db.shape == (4 * H,)
     assert all(n == 0 for n in K.launch_counts.values())
+
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    whh, lstm_bias = torch.randn(2, H, 4 * H), torch.zeros(2, 4 * H)
+    y, c, g4 = L.lstm_fwd_scan(torch.randn(T, B, 8 * H), whh, lstm_bias,
+                               lengths, (False, True))
+    dxp, db = L.lstm_bwd_scan(whh, lengths, c, g4, torch.ones_like(y),
+                              (False, True))
+    assert dxp.shape == g4.shape and db.shape == (2, 4 * H)
+    assert all(n == 0 for n in K.launch_counts.values())
+    with pytest.raises(ValueError, match="expected"):
+        L.lstm_fwd_scan(torch.empty(T, B, 8 * H, device="meta"),
+                        whh.to("meta"), lstm_bias.to("meta"),
+                        lengths.to("meta"), (False, True))
 
     meta = torch.empty(T, B, 4 * H, device="meta")
     with pytest.raises(ValueError, match="expected"):

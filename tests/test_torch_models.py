@@ -145,6 +145,10 @@ def test_variational_dropout_mask_is_shared_across_time():
     ("SRURNN", dict(in_dim=425, out_dim=187, num_hidden=2, hidden_dim=32,
                     bidirectional=True, use_relu=1)),
     ("MLP", dict(in_dim=483, out_dim=1, num_hidden=3, hidden_dim=16)),
+    ("LSTMRNN", dict(in_dim=425, out_dim=187, num_hidden=2, hidden_dim=32,
+                     bidirectional=True)),
+    ("GRURNN", dict(in_dim=425, out_dim=187, num_hidden=2, hidden_dim=16,
+                    bidirectional=False)),
 ])
 def test_converter_round_trip_is_bit_exact(name, kw):
     from gantts_tpu.models import create_model as jax_create_model
@@ -166,8 +170,7 @@ def test_converter_round_trip_is_bit_exact(name, kw):
 
 
 def test_unported_models_say_which_roadmap_item_brings_them():
-    for name in ("In2OutHighwayNet", "In2OutRNNHighwayNet", "GRURNN",
-                 "LSTMRNN"):
+    for name in ("In2OutHighwayNet", "In2OutRNNHighwayNet"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             create_model(name, in_dim=4, out_dim=4)
     with pytest.raises(ValueError, match="Unknown model"):

@@ -123,20 +123,21 @@ class _GradCapture:
 _CACHE = {}
 
 
-def _run_both(optimizer, compute_dtype="float32"):
+def _run_both(optimizer, compute_dtype="float32", hp_fn=_hp):
     """Both packages take one training step; cached per case because the
     JAX step compiles for each.  ``optimizer``: "capture" (no update, the
     gradients kept), "torch_rule" (JAX with torch's Adagrad rule) or
-    "package" (JAX with its own ``create_optimizer``, adv_w = 0)."""
-    key = (optimizer, compute_dtype)
+    "package" (JAX with its own ``create_optimizer``, adv_w = 0).
+    ``hp_fn(hparams_module, compute_dtype)`` gives the configuration."""
+    key = (optimizer, compute_dtype, hp_fn)
     if key not in _CACHE:
-        _CACHE[key] = _step_both(optimizer, compute_dtype)
+        _CACHE[key] = _step_both(optimizer, compute_dtype, hp_fn)
     return _CACHE[key]
 
 
-def _step_both(optimizer, compute_dtype):
+def _step_both(optimizer, compute_dtype, hp_fn):
     x, y, lengths, R, Y_mean, Y_std = _batch()
-    jhp = _hp(jax_hparams, compute_dtype)
+    jhp = hp_fn(jax_hparams, compute_dtype)
     model_g, model_d, tx_g, tx_d, jg, jd = jax_init(jhp, seed=0)
     if optimizer == "capture":
         tx_g, tx_d = _grad_capture(), _grad_capture()
@@ -150,7 +151,7 @@ def _step_both(optimizer, compute_dtype):
     # host copies: the JAX step donates its input states
     g0, d0 = jax.tree_util.tree_map(np.array, (jg.params, jd.params))
 
-    hp = _hp(hparams, compute_dtype)
+    hp = hp_fn(hparams, compute_dtype)
     mg, md, _, _, tg, td = init_models_and_states(hp, seed=0, device="cpu")
     mg.load_state_dict(convert.flax_to_torch(g0), strict=True)
     md.load_state_dict(convert.flax_to_torch(d0), strict=True)
@@ -219,8 +220,9 @@ def test_eval_step_updates_nothing():
         assert float(ev[k]) == float(out[k]), k
 
 
-def _check_gradients(compute_dtype):
-    (jg, jd, jout), (tg, td, out), _, n = _run_both("capture", compute_dtype)
+def _check_gradients(compute_dtype, hp_fn=_hp):
+    (jg, jd, jout), (tg, td, out), _, n = _run_both("capture", compute_dtype,
+                                                    hp_fn)
     _check_outputs(jout, out, n)
     for jstate, tstate in ((jg, tg), (jd, td)):
         ref = convert.flax_to_torch(jstate.opt_state)
@@ -251,7 +253,7 @@ def _sum_of_squares(opt_state):
     return convert.flax_to_torch(found[0])
 
 
-def _check_updates(compute_dtype):
+def _check_updates(compute_dtype, hp_fn=_hp, noise_level=1e-5):
     """Clip + weight decay + Adagrad against the JAX package's own optimizer,
     in a step with adv_w = 0 (D still takes its full update).
 
@@ -263,15 +265,15 @@ def _check_updates(compute_dtype):
     first step is about +-lr whatever |g|, so a noise-level gradient may
     move the other way) the difference must be the eps-placement gap
     lr sign(g) (|g| / sqrt(g^2 + eps) - |g| / (|g| + eps)).  Its limit is
-    1e-6 plus what a gradient difference at the noise level, 1e-5 max|g|,
-    moves the package's update by: its slope in g is
+    1e-6 plus what a gradient difference at the noise level, 1e-5 max|g|
+    (``noise_level``), moves the package's update by: its slope in g is
     lr eps / (g^2 + eps)^(3/2), up to lr / sqrt(eps) near g = 0, while
     torch's rule is flat there.  The gap is at most lr, and at this step it
     reaches more than half of lr."""
     (jg, jd, _), (tg, td, _), (g0, d0), _ = _run_both("package",
-                                                       compute_dtype)
-    lr = _hp(hparams).optimizer_g_params["lr"]
-    assert lr == _hp(hparams).optimizer_d_params["lr"]
+                                                       compute_dtype, hp_fn)
+    lr = hp_fn(hparams, "float32").optimizer_g_params["lr"]
+    assert lr == hp_fn(hparams, "float32").optimizer_d_params["lr"]
     eps, largest_gap, n_far = 1e-10, 0.0, 0
     for jstate, p0, tstate in ((jg, g0, tg), (jd, d0, td)):
         ref = convert.flax_to_torch(jstate.params)
@@ -287,7 +289,7 @@ def _check_updates(compute_dtype):
             n_far += int(far.sum())
             if far.any():
                 assert np.abs(diff[far]).max() <= 1e-6, name
-            noise = 1e-5 * g.max()
+            noise = noise_level * g.max()
             sel = g > noise
             assert sel.mean() > 0.5, name
             slope = lr * eps / (g * g + eps) ** 1.5
