@@ -13,33 +13,48 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   3. hold each kernel against its plain PyTorch version at the training
      steps' shapes (T=512, B=20, H=512, D in {425, 1024}, float32 and
      bfloat16; the SRU kernels in both directions with relu, the LSTM
-     kernels with two directions and with one, forward and reversed), and
-     time both;
+     kernels with two directions and with one, forward and reversed; (3c)
+     the linear recurrence of the k=3 SRU layer in float32, with ragged
+     lengths), and time both, beside the library call that computes the
+     same function where there is one (cuBLAS for the GEMM, a cuDNN
+     bidirectional LSTM layer for the LSTM scans);
   4. the main paths, each with its launch counters set to 0 just before
-     and checked just after: full-width tts_acoustic GAN training steps
-     (MLP discriminator, dense MLPG, Adagrad, bfloat16 compute, dropout on)
-     with (4) the 6x512 bidirectional SRU generator and (4b) the 6x512
-     bidirectional LSTMRNN generator of bench.py's LSTM configuration;
+     and checked just after, and every plain version refused while it
+     runs: full-width tts_acoustic GAN training steps (MLP discriminator,
+     dense MLPG, Adagrad, bfloat16 compute, dropout on) with (4) the 6x512
+     bidirectional SRU generator, (4b) the 6x512 bidirectional LSTMRNN
+     generator of bench.py's LSTM configuration and (4c) the 6x512
+     unidirectional SRU generator, whose layers 1-5 are k=3 layers;
   5. one small float32 step on the card against the same step on the CPU
      (where every kernel wrapper takes its plain version), same weights,
      and the same step on the card with TF32 matmuls as a control that the
      comparison's limit must catch: (5) with an SRU generator, (5b) with an
-     LSTMRNN.
+     LSTMRNN, (5c) with a unidirectional SRU;
+  6. the port's training command line (gantts_tpu_torch.train) on a
+     synthetic acoustic corpus written by the port's own code: two epochs
+     of (4c)'s configuration, then a second stage resumed from both
+     checkpoints for one more epoch.
 
-Each main path ends with a torch.profiler trace of a few more of its
-steps, which prints where the device time goes and the idle share the
-trace measured (nothing is written to disk).
+Each of (4), (4b) and (4c) ends with a torch.profiler trace of a few more
+of its steps, which prints where the device time goes and the idle share
+the trace measured (nothing is written to disk).
 
-The last lines are a JSON object describing each kernel, the card's name
-and power limit as nvidia-smi reports them, and the JSON status line.
+The last lines are a JSON object describing each kernel (its launches on
+the main paths, its largest error against its plain version, its time, the
+plain version's and the library call's, and the least time the card could
+take for the same work), the card's name and power limit as nvidia-smi
+reports them, and the JSON status line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -51,6 +66,7 @@ LIN_DIM, OUT_DIM = 425, 187
 DISC_IN = 60 - 2 + LIN_DIM
 SRU_SOURCE = "gantts_tpu_torch/kernels/csrc/sru_scan.cu"
 LSTM_SOURCE = "gantts_tpu_torch/kernels/csrc/lstm_scan.cu"
+LINEAR_SOURCE = "gantts_tpu_torch/kernels/csrc/linear_scan.cu"
 # kernel -> (source, the Pallas kernels it replaces)
 KERNELS = {
     "sru_proj_gemm": (SRU_SOURCE, "gantts_tpu/kernels/sru_scan.py:560"),
@@ -60,7 +76,16 @@ KERNELS = {
                       "also :162 and :421"),
     "lstm_bwd_scan": (LSTM_SOURCE, "gantts_tpu/kernels/lstm_scan.py:665, "
                       "also :190"),
+    "linear_recurrence_fwd": (LINEAR_SOURCE,
+                              "gantts_tpu/kernels/sru_scan.py:85"),
+    "linear_recurrence_bwd": (LINEAR_SOURCE,
+                              "gantts_tpu/kernels/sru_scan.py:101"),
 }
+# The card's published peaks (H100 SXM, dense): the bound of a kernel is
+# the larger of its bytes over HBM_BPS and its operations over the peak of
+# their type.
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # Limits on max|kernel - plain| / max(max|plain|, 1).  float32: the kernels
 # contract multiply-adds and use libm's expf/tanhf where PyTorch runs
 # separate elementwise kernels, and sum in another order; the scans compound
@@ -79,6 +104,10 @@ LSTM_TOL_STATE = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 PRE_RTOL = 3e-6   # losses and metrics taken before any parameter update
 POST_RTOL = 2e-4  # loss_adv and generator: through the just-updated D
 POST_UPDATE = ("loss_adv", "generator")
+# Linear recurrence (3c): the kernels round each product and sum on its
+# own, in the plain version's order, as its separate PyTorch ops do, so the
+# two should agree exactly; limit 1e-6 of scale.
+LINEAR_TOL = 1e-6
 STEPS, WARMUP = 5, 2  # phase 4: timed steps, after untimed warm-up steps
 PROFILE_STEPS = 5     # phase 4's traced steps, after the timed ones
 
@@ -118,6 +147,94 @@ def card_line():
 
 def bench_lengths(rs):
     return np.r_[rs.randint(T // 2, T, B - 1), T].astype(np.int32)
+
+
+def record(ms, plain_ms, nbytes, ops, dt, library_ms=None):
+    """A kernel's measured times beside its bound: the larger of the bytes
+    it must move (each input read once, each output written once) over
+    HBM_BPS and its operations over the peak of ``dt``."""
+    by_bytes = nbytes / HBM_BPS * 1e3
+    by_ops = ops / PEAK_FLOPS[dt] * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+@contextlib.contextmanager
+def plain_versions_forbidden():
+    """While a main path runs, every kernel's plain version raises: CUDA
+    tensors must never reach one."""
+    from gantts_tpu_torch.kernels import linear_scan, lstm_scan, sru_scan
+
+    saved = [(m, n, getattr(m, n)) for m in (sru_scan, lstm_scan,
+                                              linear_scan)
+             for n in dir(m) if n.endswith("_plain")]
+
+    def refuse(name):
+        def plain(*args, **kwargs):
+            fail(f"the main path reached {name}")
+        return plain
+    for m, n, _ in saved:
+        setattr(m, n, refuse(n))
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def sru_param_count(in_dim, hidden, layers, out_dim, bidirectional):
+    """Parameters of an SRURNN, from its shapes: per layer and direction
+    w (d, kH), k = 3 when d == H else 4, and bf, br; then the linear
+    head."""
+    dirs = 2 if bidirectional else 1
+    total = 0
+    for i in range(layers):
+        d = in_dim if i == 0 else hidden * dirs
+        total += dirs * (d * (3 if d == hidden else 4) * hidden + 2 * hidden)
+    return total + dirs * hidden * out_dim + out_dim
+
+
+def _smooth(rs, n, d):
+    """Random smooth trajectories: white noise low-passed by a 21-tap
+    Hann window."""
+    x = rs.randn(n + 40, d)
+    k = np.hanning(21)
+    k /= k.sum()
+    for j in range(d):
+        x[:, j] = np.convolve(x[:, j], k, mode="same")
+    return x[20:20 + n] * 3.0
+
+
+def write_acoustic_corpus(dst, num=30, lin_dim=LIN_DIM, mgc_dim=60,
+                          frames=(200, 513), seed=0):
+    """A synthetic acoustic corpus in the repository's on-disk layout
+    (tests/make_synthetic_data.py --kind acoustic): ``dst/X_acoustic`` and
+    ``dst/Y_acoustic`` with one float32 .npy per utterance, T frames drawn
+    from ``frames``; X is (T, lin_dim) in [-4, 4], Y (T, 3 mgc_dim + 7) is
+    [mgc, lf0, vuv, bap] with deltas on all but vuv, by the port's own
+    window code.  Every frame is voiced: the F0 error is taken over frames
+    voiced in both the target and the prediction, and with a constant vuv
+    stream (standard deviation 0) every prediction denormalizes to voiced,
+    so the error is defined at any weights."""
+    from gantts_tpu_torch.core.windows import DEFAULT_WINDOWS, delta_features
+
+    rs = np.random.RandomState(seed)
+    for sub in ("X_acoustic", "Y_acoustic"):
+        os.makedirs(os.path.join(dst, sub), exist_ok=True)
+    for i in range(num):
+        n = int(rs.randint(*frames))
+        lin = np.clip(_smooth(rs, n, lin_dim), -4, 4)
+        lf0 = 5.0 + 0.2 * _smooth(rs, n, 1)
+        vuv = np.ones((n, 1))
+        y = np.hstack([delta_features(_smooth(rs, n, mgc_dim),
+                                      DEFAULT_WINDOWS),
+                       delta_features(lf0, DEFAULT_WINDOWS), vuv,
+                       delta_features(0.1 * _smooth(rs, n, 1),
+                                      DEFAULT_WINDOWS)])
+        name = f"utt_{i:04d}.npy"
+        np.save(os.path.join(dst, "X_acoustic", name), lin.astype(np.float32))
+        np.save(os.path.join(dst, "Y_acoustic", name), y.astype(np.float32))
 
 
 def check(kernel, what, dt, D, got, ref, lim, errs):
@@ -216,6 +333,8 @@ def phase_kernels(dev, card, errs):
             times[("sru_proj_gemm", dt, D)] = (
                 time_ms(lambda: K.sru_proj_gemm(x2, w_c), 20),
                 time_ms(lambda: K.sru_proj_gemm_plain(x2, w_c), 20))
+            if dt == torch.bfloat16 and D == 2 * H:
+                gemm_library_ms = time_ms(lambda: torch.mm(x2, w_c), 20)
         u = torch.randn((T, B, 4 * H), generator=gen, device=dev).to(dt)
         bias4 = uniform(4 * H)
         gh = torch.randn((T, B, H), generator=gen, device=dev).to(dt)
@@ -233,9 +352,27 @@ def phase_kernels(dev, card, errs):
         shape = f"D={D} " if D else ""
         print(f"[3] time {kernel:13s} {str(dt)[6:]:8s} {shape}"
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  [{card}]")
-    return {k: times[(k, torch.bfloat16, 2 * H if k == "sru_proj_gemm"
-                      else None)]
-            for k in ("sru_proj_gemm", "sru_fwd_scan", "sru_bwd_scan")}
+    print(f"[3] time torch.mm (cuBLAS) bfloat16 D={2 * H} "
+          f"{gemm_library_ms:.4f} ms  [{card}]")
+    # Bounds at the timed bf16 shapes.  The scans need u, c and gh only on
+    # valid frames (``nv`` of T*B): padding is masked out.
+    bf = torch.bfloat16
+    M, D, N, nv = T * B, 2 * H, 4 * H, float(lengths.sum())
+    return {
+        "sru_proj_gemm": record(
+            *times[("sru_proj_gemm", bf, D)], 2 * (M * D + D * N + M * N),
+            2 * M * D * N, bf, gemm_library_ms),
+        # per valid lane and step: two sigmoids and the cell, ~16 f32 ops
+        "sru_fwd_scan": record(
+            *times[("sru_fwd_scan", bf, None)],
+            nv * N * 2 + N * 4 + B * 4 + M * H * (2 + 4), 16 * nv * H,
+            torch.float32),
+        # ~30 f32 ops per valid lane and step
+        "sru_bwd_scan": record(
+            *times[("sru_bwd_scan", bf, None)],
+            nv * (N * 2 + H * 4 + H * 2) + N * 4 + B * 4 + M * N * 2
+            + B * 2 * H * 4, 30 * nv * H, torch.float32),
+    }
 
 
 def phase_lstm_kernels(dev, card, errs):
@@ -332,11 +469,100 @@ def phase_lstm_kernels(dev, card, errs):
     for kernel, (ms, plain_ms) in times.items():
         print(f"[3] time {kernel:13s} bfloat16 two directions "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  [{card}]")
-    return times
+    cudnn = time_cudnn_lstm(dev, card, gen, lengths, (False, True))
+    # Bounds, per direction: xp, c, g4 and gy are needed on valid frames
+    # only; the recurrent product is 2 * H * 4H operations per valid frame,
+    # on the tensor cores in bf16.
+    nv, M = float(lengths.sum()), T * B
+    ops = 2 * nv * H * 4 * H
+    wts = H * 4 * H * 2 + 4 * H * 4
+    fwd_bytes = nv * 4 * H * 2 + wts + M * H * (2 + 4) + M * 4 * H * 2
+    bwd_bytes = wts + nv * (H * 4 + 4 * H * 2 + H * 2) + M * 4 * H * 2
+    # one direction, as a unidirectional LSTM stack launches them (the
+    # kernels of TPU rows 5-7): kernel, plain version and cuDNN
+    one = (False,)
+    xp1, gy1 = xp[..., :4 * H].contiguous(), gy[..., :H].contiguous()
+    whh1, bias1 = whh[:1].contiguous(), bias[:1].contiguous()
+    _, c1, g41 = L.lstm_fwd_scan(xp1, whh1, bias1, lengths, one)
+    one_fwd = record(
+        time_ms(lambda: L.lstm_fwd_scan(xp1, whh1, bias1, lengths, one),
+                10),
+        time_ms(lambda: L.lstm_fwd_scan_plain(xp1, whh1, bias1, lengths,
+                                              one), 1, warmup=1),
+        fwd_bytes, ops, torch.bfloat16)
+    one_bwd = record(
+        time_ms(lambda: L.lstm_bwd_scan(whh1, lengths, c1, g41, gy1, one),
+                10),
+        time_ms(lambda: L.lstm_bwd_scan_plain(whh1, lengths, c1, g41, gy1,
+                                              one), 1, warmup=1),
+        bwd_bytes, ops, torch.bfloat16)
+    print(f"[3] time lstm scans bfloat16 one direction: forward kernel "
+          f"{one_fwd['ms']:.4f} ms, plain {one_fwd['plain_ms']:.4f} ms "
+          f"(bound {one_fwd['bound_ms']:.4f}); backward kernel "
+          f"{one_bwd['ms']:.4f} ms, plain {one_bwd['plain_ms']:.4f} ms "
+          f"(bound {one_bwd['bound_ms']:.4f})  [{card}]")
+    time_cudnn_lstm(dev, card, gen, lengths, one)
+    return {
+        "lstm_fwd_scan": record(*times["lstm_fwd_scan"], 2 * fwd_bytes,
+                                2 * ops, torch.bfloat16, cudnn["fwd"]),
+        "lstm_bwd_scan": record(*times["lstm_bwd_scan"], 2 * bwd_bytes,
+                                2 * ops, torch.bfloat16,
+                                cudnn["fwd+bwd"] - cudnn["fwd"]),
+    }
+
+
+def time_cudnn_lstm(dev, card, gen, lengths, reverse):
+    """The library yardstick of the LSTM scans: one torch.nn.LSTM layer
+    (cuDNN) with the directions of ``reverse`` (both, or one) at the step's
+    shapes, bf16, D = H * directions inputs (what the layers after the
+    first of such a stack see), forward and forward+backward, beside the
+    port's layer (``lstm_proj_layer``: sru_proj_gemm, the scans, and the
+    dx/dW matmuls) on the same shapes.  cuDNN runs every row to T (no
+    packing); the port's kernels walk all of T too, masking the padding."""
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    nd = len(reverse)
+    D = nd * H
+    lstm = torch.nn.LSTM(D, H, bidirectional=nd == 2).to(dev, torch.bfloat16)
+    x = torch.randn((T, B, D), generator=gen, device=dev).to(torch.bfloat16)
+    gy = torch.randn((T, B, nd * H), generator=gen, device=dev).to(
+        torch.bfloat16)
+    x.requires_grad_(True)
+    sfxs = ("", "_reverse")[:nd]
+    params = [{k: getattr(lstm, f"{n}_l0{sfx}").detach().float().t()
+               .contiguous() for k, n in (("w_ih", "weight_ih"),
+                                          ("w_hh", "weight_hh"))}
+              for sfx in sfxs]
+    for p, sfx in zip(params, sfxs):
+        p["bias"] = (getattr(lstm, f"bias_ih_l0{sfx}")
+                     + getattr(lstm, f"bias_hh_l0{sfx}")).detach().float()
+    for p in params:
+        for v in p.values():
+            v.requires_grad_(True)
+
+    def cudnn_fwd_bwd():
+        y, _ = lstm(x)
+        y.backward(gy)
+
+    def port_fwd_bwd():
+        L.lstm_proj_layer(x, params, lengths, reverse,
+                          "bfloat16").backward(gy)
+
+    with torch.no_grad():
+        t = {"fwd": time_ms(lambda: lstm(x), 10),
+             "port fwd": time_ms(lambda: L.lstm_proj_layer(
+                 x, params, lengths, reverse, "bfloat16"), 10)}
+    t["fwd+bwd"] = time_ms(cudnn_fwd_bwd, 10)
+    t["port fwd+bwd"] = time_ms(port_fwd_bwd, 10)
+    print(f"[3] time cuDNN {'bidirectional' if nd == 2 else 'one-direction'}"
+          f" LSTM layer bf16 D={D}: forward {t['fwd']:.4f} ms, "
+          f"forward+backward {t['fwd+bwd']:.4f} ms; the port's layer "
+          f"{t['port fwd']:.4f} / {t['port fwd+bwd']:.4f} ms  [{card}]")
+    return t
 
 
 def acoustic_hp(compute_dtype, **gen_overrides):
-    from gantts_tpu_torch._shared import hparams
+    from gantts_tpu_torch import hparams
 
     hp = hparams.tts_acoustic.copy()
     hp.compute_dtype = compute_dtype
@@ -376,10 +602,10 @@ def make_trainer(hp, dev):
 
 
 def phase_main_path(dev, card, tag, hp, per_step, n_expected=None):
-    """Phase 4 (``tag`` "4" or "4b"): full-width bf16 training steps
+    """Phase 4 (``tag`` "4", "4b" or "4c"): full-width bf16 training steps
     through the kernels.  ``per_step``: the launches of each kernel that
     one step must make; ``n_expected``: the generator's parameter count."""
-    from gantts_tpu_torch._shared import unit_variance_mlpg_matrix
+    from gantts_tpu_torch.core.windows import unit_variance_mlpg_matrix
     from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
     from gantts_tpu_torch.train.setup import init_models_and_states
 
@@ -464,6 +690,8 @@ KERNEL_GROUPS = (("sru_proj_gemm", ("proj_gemm",)),
                  ("sru_bwd_scan", ("sru_bwd_scan",)),
                  ("lstm_fwd_scan", ("lstm_fwd_kernel",)),
                  ("lstm_bwd_scan", ("lstm_bwd_kernel",)),
+                 ("linear_recurrence_fwd", ("linear_recurrence_fwd",)),
+                 ("linear_recurrence_bwd", ("linear_recurrence_bwd",)),
                  ("library GEMMs (dx, dW, D, head, MLPG)",
                   ("gemm", "cutlass", "xmma", "cublas", "nvjet")))
 
@@ -473,8 +701,9 @@ def phase_profile(tag, run_steps, ms_unprofiled, card):
 
     Device busy time is the union of the trace's device intervals (kernels,
     copies, fills; not annotations); the idle share is 1 - busy / the
-    traced wall span of the steps, both from this one trace.  The profiler adds host time per
-    launch, so that idle share is an upper bound for an unprofiled step."""
+    traced wall span of the steps, both from this one trace.  The profiler
+    adds host time per launch, so that idle share is an upper bound for an
+    unprofiled step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -527,7 +756,7 @@ def phase_profile(tag, run_steps, ms_unprofiled, card):
 
 
 def phase_small_step(dev, tag, hp):
-    """Phase 5 (``tag`` "5" or "5b"): a small float32 step (dropout off)
+    """Phase 5 (``tag`` "5", "5b" or "5c"): a small float32 step (dropout off)
     on the card against the same step on the CPU, from the same weights.
 
     Losses and metrics taken before any update must agree to PRE_RTOL: the
@@ -541,8 +770,9 @@ def phase_small_step(dev, tag, hp):
     the comparison could not see such a slip.  Both limits sit between
     readings on an H100 (700 W): the largest sound gaps were 2.7e-7
     (pre-update) and 7.1e-6 (post-update), the control's 3.9e-5 and
-    5.9e-3.  The same limits hold the LSTMRNN step (5b)."""
-    from gantts_tpu_torch._shared import unit_variance_mlpg_matrix
+    5.9e-3.  The same limits hold the LSTMRNN step (5b) and the
+    unidirectional SRU step (5c)."""
+    from gantts_tpu_torch.core.windows import unit_variance_mlpg_matrix
     from gantts_tpu_torch.train.setup import init_models_and_states
 
     hp.discriminator_params.update(dropout=0.0)
@@ -601,6 +831,147 @@ def phase_small_step(dev, tag, hp):
              "comparison cannot see a TF32 matmul")
 
 
+def phase_linear_kernels(dev, card, errs):
+    """Phase 3c: the k=3 layer's linear recurrence, float32, T=512, B=20,
+    H=512, with the k=3 layer's masking (f = 1, b = 0 on padded frames):
+    both kernels and the autograd Function against the plain versions, then
+    kernels and plain versions timed."""
+    from gantts_tpu_torch.kernels import linear_scan as L
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    lengths = torch.as_tensor(bench_lengths(np.random.RandomState(0)),
+                              device=dev)
+    m = (torch.arange(T, device=dev)[:, None] < lengths[None, :]).float()
+    m = m[..., None]
+
+    def randn():
+        return torch.randn((T, B, H), generator=gen, device=dev)
+
+    f = torch.sigmoid(randn()) * m + (1.0 - m)
+    b = randn() * 0.5 * m
+    g = randn()
+    c_p = L.linear_recurrence_fwd_plain(f, b)
+    df_p, db_p = L.linear_recurrence_bwd_plain(g, f, c_p)
+    df_k, db_k = L.linear_recurrence_bwd(g, f, c_p)
+    fr, br = f.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    c_a = L.linear_recurrence(fr, br)
+    c_a.backward(g)
+    f32 = torch.float32
+    for kernel, what, got, ref in (
+            ("linear_recurrence_fwd", "c", L.linear_recurrence_fwd(f, b),
+             c_p),
+            ("linear_recurrence_bwd", "df", df_k, df_p),
+            ("linear_recurrence_bwd", "db", db_k, db_p),
+            ("linear_layer", "c", c_a, c_p),
+            ("linear_layer", "df", fr.grad, df_p),
+            ("linear_layer", "db", br.grad, db_p)):
+        check(kernel, f"{what}:3c", f32, None, got, ref, LINEAR_TOL, errs)
+
+    times = {
+        "linear_recurrence_fwd": (
+            time_ms(lambda: L.linear_recurrence_fwd(f, b), 20),
+            time_ms(lambda: L.linear_recurrence_fwd_plain(f, b), 2, 1)),
+        "linear_recurrence_bwd": (
+            time_ms(lambda: L.linear_recurrence_bwd(g, f, c_p), 20),
+            time_ms(lambda: L.linear_recurrence_bwd_plain(g, f, c_p), 2,
+                    1))}
+    for kernel, (ms, plain_ms) in times.items():
+        print(f"[3c] time {kernel:21s} float32 kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  [{card}]")
+    # f and b in, c out (2 operations per element); g, f and c in, df and
+    # db out (3 operations per element).  No PyTorch call computes it.
+    n = T * B * H
+    return {"linear_recurrence_fwd": record(
+                *times["linear_recurrence_fwd"], 3 * n * 4, 2 * n, f32),
+            "linear_recurrence_bwd": record(
+                *times["linear_recurrence_bwd"], 5 * n * 4, 3 * n, f32)}
+
+
+def phase_cli(card):
+    """Phase 6: ``python -m gantts_tpu_torch.train``'s main() on a synthetic
+    corpus of 30 utterances (200-512 frames, 425 -> 187 dims) in a
+    temporary directory: two epochs of (4c)'s configuration (the 6x512
+    unidirectional relu SRU, bf16 matmuls, w_d = 1), then a second stage
+    from both checkpoints for one more epoch.  Checks the checkpoints, that
+    every logged value is finite and that each stage launched the k=3
+    kernels as often as its steps require; prints each phase's valid
+    frames/s.  The command line's own output goes to a log, whose tail is
+    printed if it fails.  Returns the launch counts of both stages."""
+    from gantts_tpu_torch import hparams
+    from gantts_tpu_torch.data import NPYDataSource
+    from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from gantts_tpu_torch.train.__main__ import main as train_main
+
+    gp = dict(hparams.tts_acoustic.generator_params, bidirectional=False)
+    totals = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_acoustic_corpus(tmp)
+        xdir, ydir = (os.path.join(tmp, d) for d in ("X_acoustic",
+                                                     "Y_acoustic"))
+        ck, log = os.path.join(tmp, "ck"), os.path.join(tmp, "log")
+        n_steps = {phase: -(-len(NPYDataSource(xdir, train=phase == "train")
+                                 .collect_files()) // 20)
+                   for phase in ("train", "test")}
+        stages = [(2, []), (3, [
+            f"--checkpoint-g={ck}/checkpoint_epoch2_Generator.pth",
+            f"--checkpoint-d={ck}/checkpoint_epoch2_Discriminator.pth"])]
+        for nepoch, extra in stages:
+            argv = [xdir, ydir, "--hparams_name=tts_acoustic",
+                    f"--hparams=nepoch={nepoch},compute_dtype=bfloat16,"
+                    f"generator_params={gp!r}", "--w_d=1",
+                    f"--checkpoint-dir={ck}", f"--log-event-path={log}",
+                    "--disable-slack", *extra]
+            out_path = os.path.join(tmp, f"stage{nepoch}.out")
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with open(out_path, "w") as out:
+                try:
+                    with contextlib.redirect_stdout(out), \
+                            plain_versions_forbidden():
+                        rc = train_main(argv)
+                except BaseException:
+                    out.flush()
+                    with open(out_path) as f:
+                        print("".join(f.readlines()[-40:]))
+                    raise
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = dict(launch_counts)
+            epochs = 2 if nepoch == 2 else 1
+            want = {"linear_recurrence_fwd":
+                    5 * epochs * (n_steps["train"] + n_steps["test"]),
+                    "linear_recurrence_bwd": 5 * epochs * n_steps["train"]}
+            print(f"[6] stage to epoch {nepoch}: exit {rc}, {dt:.2f} s, "
+                  f"launches {counts}")
+            if rc != 0:
+                fail(f"the training command line exited {rc}")
+            for k, n in want.items():
+                if counts[k] != n:
+                    fail(f"stage to epoch {nepoch}: {k} launched "
+                         f"{counts[k]} times, its steps need {n}")
+            for k, n in counts.items():
+                totals[k] = totals.get(k, 0) + n
+            for name in ("Generator", "Discriminator"):
+                path = os.path.join(ck, f"checkpoint_epoch{nepoch}_"
+                                    f"{name}.pth")
+                if not os.path.exists(path):
+                    fail(f"no checkpoint {os.path.basename(path)}")
+        with open(os.path.join(log, "scalars.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+    bad = [r for r in rows if not math.isfinite(r["value"])]
+    if bad or {r["step"] for r in rows} != {1, 2, 3}:
+        fail(f"logged series: {len(bad)} values not finite ({bad[:3]}), "
+             f"epochs {sorted({r['step'] for r in rows})}")
+    for r in rows:
+        if r["tag"].endswith("frames_per_sec"):
+            print(f"[6] epoch {r['step']} {r['tag']}: {r['value']:.1f} valid "
+                  f"frames/s  [{card}]")
+    print(f"[6] {len(rows)} logged values, all finite; "
+          f"{len({r['tag'] for r in rows})} series")
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this script drives the port on a GPU")
@@ -611,13 +982,15 @@ def main():
           f"{torch.cuda.device_count()} device(s)")
 
     from gantts_tpu_torch.core import paramgen  # noqa: F401  (TF32 off)
-    from gantts_tpu_torch.kernels import _build, lstm_scan, sru_scan
+    from gantts_tpu_torch.kernels import _build, linear_scan, lstm_scan, \
+        sru_scan
 
     print(f"[1] allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32}"
           f" cudnn={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:  # one nvcc per source, together
-        for f in [pool.submit(m._lib) for m in (sru_scan, lstm_scan)]:
+        for f in [pool.submit(m._lib)
+                  for m in (sru_scan, lstm_scan, linear_scan)]:
             f.result()
     print(f"[2] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, (secs, log) in _build.build_log.items():
@@ -627,28 +1000,43 @@ def main():
                 print(f"[2]   {line.strip()}")
 
     errs = {k: 0.0 for k in KERNELS}
-    times = phase_kernels(dev, card, errs)
-    times.update(phase_lstm_kernels(dev, card, errs))
+    recs = phase_kernels(dev, card, errs)
+    recs.update(phase_lstm_kernels(dev, card, errs))
+    recs.update(phase_linear_kernels(dev, card, errs))
     none = {k: 0 for k in KERNELS}
-    counts, ms, run_steps = phase_main_path(
-        dev, card, "4", acoustic_hp("bfloat16"),
-        dict(none, sru_proj_gemm=12, sru_fwd_scan=12, sru_bwd_scan=12))
-    phase_profile("4", run_steps, ms, card)
-    counts_b, ms, run_steps = phase_main_path(
-        dev, card, "4b", lstm_hp("bfloat16"),
-        dict(none, sru_proj_gemm=6, lstm_fwd_scan=6, lstm_bwd_scan=6),
-        lstm_param_count(LIN_DIM, H, 6, OUT_DIM))
-    phase_profile("4b", run_steps, ms, card)
+    paths = [("4", acoustic_hp("bfloat16"),
+              dict(none, sru_proj_gemm=12, sru_fwd_scan=12, sru_bwd_scan=12),
+              sru_param_count(LIN_DIM, H, 6, OUT_DIM, True)),
+             ("4b", lstm_hp("bfloat16"),
+              dict(none, sru_proj_gemm=6, lstm_fwd_scan=6, lstm_bwd_scan=6),
+              lstm_param_count(LIN_DIM, H, 6, OUT_DIM)),
+             ("4c", acoustic_hp("bfloat16", bidirectional=False),
+              dict(none, sru_proj_gemm=1, sru_fwd_scan=1, sru_bwd_scan=1,
+                   linear_recurrence_fwd=5, linear_recurrence_bwd=5),
+              sru_param_count(LIN_DIM, H, 6, OUT_DIM, False))]
+    launches = dict(none)
+    for tag, hp, per_step, n_expected in paths:
+        with plain_versions_forbidden():
+            counts, ms, run_steps = phase_main_path(dev, card, tag, hp,
+                                                    per_step, n_expected)
+            phase_profile(tag, run_steps, ms, card)
+        for k, n in counts.items():
+            launches[k] += n
     phase_small_step(dev, "5", acoustic_hp(
         "float32", num_hidden=2, hidden_dim=64, dropout=0.0, rnn_dropout=0.0))
     phase_small_step(dev, "5b", lstm_hp(
         "float32", num_hidden=2, hidden_dim=64, dropout=0.0))
+    phase_small_step(dev, "5c", acoustic_hp(
+        "float32", num_hidden=3, hidden_dim=64, dropout=0.0, rnn_dropout=0.0,
+        bidirectional=False))
+    for k, n in phase_cli(card).items():
+        launches[k] += n
 
-    # launches: both main paths' runs (sru_proj_gemm serves both)
-    kernels = [{"name": k, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": counts[k] + counts_b[k],
-                "max_abs_err": errs[k], "ms": times[k][0],
-                "plain_ms": times[k][1]}
+    # launches: the main paths' runs, 4, 4b, 4c and 6 (sru_proj_gemm and
+    # the SRU scans serve several)
+    kernels = [dict({"name": k, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches[k],
+                     "max_abs_err": errs[k]}, **recs[k])
                for k, (src, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gantts_tpu_torch.core.windows import delta_features
+
 
 def get_static_stream_sizes(stream_sizes, has_dynamic_features, num_windows):
     """Static dimension of each stream."""
@@ -45,3 +47,19 @@ def get_static_features(inputs, num_windows, stream_sizes=(180, 3, 1, 3),
         if enabled:
             ret.append(inputs[..., s:s + (size // num_windows if v else size)])
     return torch.cat(ret, dim=-1)
+
+
+def recompute_delta_features(Y, windows, stream_sizes=(180, 3, 1, 3),
+                             has_dynamic_features=(True, True, False, True)):
+    """Re-derive each dynamic stream's delta blocks from its static block of
+    a (T, D) numpy array (host-side, in the data pipeline after
+    normalization); returns a modified copy."""
+    Y = np.array(Y, copy=True)
+    static_sizes = get_static_stream_sizes(stream_sizes, has_dynamic_features,
+                                           len(windows))
+    for s, size, static_size, dyn in zip(_starts(stream_sizes), stream_sizes,
+                                         static_sizes, has_dynamic_features):
+        if dyn:
+            Y[:, s:s + size] = delta_features(Y[:, s:s + static_size],
+                                              windows)
+    return Y

@@ -4,6 +4,9 @@ Importing this package needs no CUDA toolkit: a kernel library is built and
 loaded the first time a CUDA tensor reaches one of its wrappers.
 """
 
+from gantts_tpu_torch.kernels.linear_scan import (  # noqa: F401
+    linear_recurrence,
+)
 from gantts_tpu_torch.kernels.lstm_scan import (  # noqa: F401
     fused_bilstm_proj_layer,
     fused_lstm_layer,

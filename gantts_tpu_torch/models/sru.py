@@ -6,14 +6,19 @@ of gantts_tpu/models/sru.py).
 
 with f = sigmoid(u_f + bf), r = sigmoid(u_r + br), g = relu or tanh, and
 u = x @ W.  Padded frames use f = 1 and input 0, so the state is carried
-through unchanged, and h is zeroed there.  The reversed direction of a
-bidirectional stack is a reversed traversal, with no flip.
+through unchanged, and h is zeroed there.  The reversed direction of a k=4
+layer is a reversed traversal, with no flip.
 
-When D != H (k=4 projection blocks, every shipped bundle), a layer is
-``kernels.fused_sru_proj_layer``: the Hopper kernels for CUDA tensors, their
-plain versions for CPU tensors.  When D == H the highway reads the raw input
-(k=3 blocks); that layer runs the plain scan, differentiated by autograd,
-until its kernel is ported.
+When D != H (k=4 projection blocks: the first layer, and every layer of a
+bidirectional stack), a layer is ``kernels.fused_sru_proj_layer``.  When
+D == H (k=3 blocks: every layer after the first of a unidirectional stack)
+the highway reads the raw input, as in the JAX package: u = x @ W
+(``matmul_cast``), the gates, the length mask and the highway combine in f32
+PyTorch ops (XLA's share in the JAX package), and the recurrence through
+``kernels.linear_scan.linear_recurrence``; its reversed direction flips time
+around the recurrence, as the JAX package's k=3 path does.  Either way the
+Hopper kernels run for CUDA tensors and their plain versions for CPU
+tensors.
 
 Dropout is variational: one (1, B, D) mask per application, shared by every
 time step, drawn from the caller's ``torch.Generator``.
@@ -24,10 +29,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from gantts_tpu_torch.kernels.sru_scan import (
-    fused_sru_proj_layer,
-    sru_fwd_scan_plain,
-)
+from gantts_tpu_torch.kernels.linear_scan import linear_recurrence
+from gantts_tpu_torch.kernels.sru_scan import fused_sru_proj_layer
 from gantts_tpu_torch.models.common import (
     default_lengths,
     matmul_cast,
@@ -54,17 +57,27 @@ class SRULayer(nn.Module):
                                         generator))
 
     def forward(self, x, lengths):
-        zeros = torch.zeros_like(self.bf)
-        bias4 = torch.cat([zeros, self.bf, self.br, zeros])
         if self.k == 4:
+            zeros = torch.zeros_like(self.bf)
+            bias4 = torch.cat([zeros, self.bf, self.br, zeros])
             return fused_sru_proj_layer(
                 x, self.w, lengths, bias4=bias4, reverse=self.reverse,
                 use_relu=self.use_relu, compute_dtype=self.compute_dtype)
+        H = self.hidden_dim
         u = matmul_cast(x, self.w, self.compute_dtype)
-        u4 = torch.cat([u, x.float()], dim=-1)  # x' is the raw input
-        h, _ = sru_fwd_scan_plain(u4, bias4, lengths, self.reverse,
-                                  self.use_relu)
-        return h
+        m = (torch.arange(x.shape[0], device=x.device)[:, None]
+             < lengths[None, :]).float()[..., None]
+        x_prime = x.float()  # the raw input
+        if self.reverse:
+            u, m, x_prime = u.flip(0), m.flip(0), x_prime.flip(0)
+        f = torch.sigmoid(u[..., H:2 * H] + self.bf)
+        r = torch.sigmoid(u[..., 2 * H:3 * H] + self.br)
+        f_m = f * m + (1.0 - m)                 # f -> 1 on padding
+        b_m = (1.0 - f) * u[..., :H] * m        # input contribution -> 0
+        c = linear_recurrence(f_m, b_m)
+        g = torch.relu(c) if self.use_relu else torch.tanh(c)
+        h = (r * g + (1.0 - r) * x_prime) * m
+        return h.flip(0) if self.reverse else h
 
 
 class SRU(nn.Module):

@@ -1,0 +1,99 @@
+"""Normalization stats and scaling on the host (NumPy, float64 where it
+matters): the port's own copy of the part of
+gantts_tpu/preprocessing/__init__.py that training uses (the data pipeline's
+scaling and the stats that ``train/setup.py`` collects and saves)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _handle_zeros(scale):
+    """Avoid div-by-zero for constant feature dims (sklearn convention)."""
+    scale = np.asarray(scale, dtype=np.float64).copy()
+    if scale.ndim == 0:
+        return 1.0 if scale == 0.0 else scale
+    scale[scale == 0.0] = 1.0
+    return scale
+
+
+def scale(x, data_mean, data_std):
+    """Z-score normalization: (x - mean) / std  (std==0 dims pass through)."""
+    return (x - data_mean) / _handle_zeros(data_std)
+
+
+def inv_scale(x, data_mean, data_std):
+    """Inverse of :func:`scale`: x * std + mean."""
+    return data_std * x + data_mean
+
+
+def minmax_scale_params(data_min, data_max, feature_range=(0, 1)):
+    """Precompute (min_, scale_) for :func:`minmax_scale`."""
+    data_range = data_max - data_min
+    scale_ = (feature_range[1] - feature_range[0]) / _handle_zeros(data_range)
+    return data_min, scale_
+
+
+def minmax_scale(x, data_min=None, data_max=None, feature_range=(0, 1),
+                 scale_=None, min_=None):
+    """Min-max scaling into ``feature_range``, from raw (data_min, data_max)
+    or from (min_, scale_) precomputed by :func:`minmax_scale_params`."""
+    if scale_ is None or min_ is None:
+        min_, scale_ = minmax_scale_params(data_min, data_max, feature_range)
+    return (x - min_) * scale_ + feature_range[0]
+
+
+def meanvar(dataset, lengths=None, mean_=0.0, var_=0.0,
+            last_sample_count=0, return_last_sample_count=False):
+    """Streaming per-dimension mean and population variance over all frames
+    of a dataset (``nnmnkwii.preprocessing.meanvar``), Chan et al.'s
+    parallel update.  Pass a previous call's (mean_, var_,
+    last_sample_count) to continue accumulating, as VC pools X and Y."""
+    mean_ = np.asarray(mean_, dtype=np.float64)
+    var_ = np.asarray(var_, dtype=np.float64)
+    n = int(last_sample_count)
+    if n > 0:
+        m2 = var_ * n
+        total = mean_ * n
+    else:
+        m2 = None
+        total = None
+
+    for idx, x in enumerate(dataset):
+        x = np.asarray(x, dtype=np.float64)
+        if lengths is not None:
+            x = x[: lengths[idx]]
+        nb = x.shape[0]
+        if nb == 0:
+            continue
+        mb = x.mean(axis=0)
+        m2b = ((x - mb) ** 2).sum(axis=0)
+        if total is None:
+            total, m2, n = mb * nb, m2b, nb
+        else:
+            delta = mb - total / n
+            total = total + mb * nb
+            m2 = m2 + m2b + delta ** 2 * n * nb / (n + nb)
+            n += nb
+
+    mean_out = total / n
+    var_out = m2 / n
+    if return_last_sample_count:
+        return mean_out, var_out, n
+    return mean_out, var_out
+
+
+def minmax(dataset, lengths=None):
+    """Per-dimension min/max over all frames of a dataset."""
+    data_min, data_max = None, None
+    for idx, x in enumerate(dataset):
+        x = np.asarray(x)
+        if lengths is not None:
+            x = x[: lengths[idx]]
+        xmin, xmax = x.min(axis=0), x.max(axis=0)
+        if data_min is None:
+            data_min, data_max = xmin, xmax
+        else:
+            data_min = np.minimum(data_min, xmin)
+            data_max = np.maximum(data_max, xmax)
+    return data_min.astype(np.float64), data_max.astype(np.float64)

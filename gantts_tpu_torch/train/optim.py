@@ -6,7 +6,9 @@ torch.optim itself:
 
   Adagrad  accumulator starts at 0, eps=1e-10, weight_decay added to the raw
            gradient (non-decoupled);
-  Adam     eps=1e-8, (b1, b2) from ``betas``, non-decoupled weight_decay.
+  Adam     eps=1e-8, (b1, b2) from ``betas``, non-decoupled weight_decay;
+  SGD      optional ``momentum`` (torch's buffer, no dampening, which is
+           optax's ``trace``), non-decoupled weight_decay.
 
 The learning rate lives in ``param_groups`` and is rewritten between steps
 by ``set_learning_rate`` (the reference's ``exp_lr_scheduler``).
@@ -33,6 +35,12 @@ class ClippedOptimizer:
     def zero_grad(self):
         self.inner.zero_grad(set_to_none=True)
 
+    def state_dict(self):
+        return self.inner.state_dict()
+
+    def load_state_dict(self, state):
+        self.inner.load_state_dict(state)
+
     def step(self):
         params = [p for group in self.inner.param_groups
                   for p in group["params"] if p.grad is not None]
@@ -54,8 +62,13 @@ def create_optimizer(name, params_dict, parameters):
         betas = tuple(kwargs.pop("betas", (0.9, 0.999)))
         inner = torch.optim.Adam(params, lr=lr, betas=betas, eps=1e-8,
                                  weight_decay=wd)
+    elif name in ("SGD", "Sgd"):
+        inner = torch.optim.SGD(params, lr=lr,
+                                momentum=kwargs.pop("momentum", 0.0),
+                                weight_decay=wd)
     else:
-        raise ValueError(f"Unknown optimizer {name!r} (Adagrad/Adam supported)")
+        raise ValueError(
+            f"Unknown optimizer {name!r} (Adagrad/Adam/SGD supported)")
     if kwargs:
         raise ValueError(f"Unsupported {name} kwargs: {sorted(kwargs)}")
     return ClippedOptimizer(inner)

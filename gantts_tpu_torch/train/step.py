@@ -2,20 +2,21 @@
 
 One ``GanTrainer.step`` runs, in the JAX package's order:
 
-  1. the generator forward, once;
-  2. the discriminator update on real features and the detached fake, both
+  1. the generator forward, once, on the linguistic input or, with
+     ``add_noise``, on [x | z] for the caller's noise z;
+  2. with ``has_ref``, the spoofing rate: frames whose selected static
+     stream a frozen reference discriminator takes for natural;
+  3. the discriminator update on real features and the detached fake, both
      in one discriminator call;
-  3. the generator update: masked MSE + MGE + the adversarial loss taken
+  4. the generator update: masked MSE + MGE + the adversarial loss taken
      through the just-updated discriminator, whose parameters receive no
      gradient from it (the JAX package's fix of the reference's D-gradient
      leak, PARITY.md "Consciously changed" 1);
-  4. distortion metrics on the detached outputs, every batch.
+  5. distortion metrics on the detached outputs, every batch.
 
 The step returns its losses and counts as 0-dim device tensors, so nothing
 waits for the device until the caller reads them.  Not ported yet: the
-spoofing rate against a frozen reference discriminator (``has_ref``),
-generator input noise (``add_noise``) and the stencil MLPG
-(``mlpg_impl="stencil"``).
+stencil MLPG (``mlpg_impl="stencil"``), which the VC path brings.
 """
 
 from __future__ import annotations
@@ -96,6 +97,10 @@ class StepConfig:
             add_noise=hp.generator_add_noise,
             mlpg_impl=getattr(hp, "mlpg_impl", "dense"),
         )
+
+    @property
+    def has_dynamic(self):
+        return any(self.has_dynamic_features)
 
     @property
     def static_stream_sizes(self):
@@ -182,16 +187,19 @@ class _frozen:
 
 class GanTrainer:
     """Static step configuration plus denormalization stats; the models and
-    optimizers travel in the ``TrainState``s passed to ``step``."""
+    optimizers travel in the ``TrainState``s passed to ``step``.
+    ``model_ref``, required when ``cfg.has_ref``, is the frozen reference
+    discriminator (weights loaded), run in eval mode without gradient."""
 
-    def __init__(self, cfg: StepConfig, Y_mean, Y_std, device):
-        for flag, what in ((cfg.has_ref, "the reference-discriminator "
-                            "spoofing rate"),
-                           (cfg.add_noise, "generator input noise"),
-                           (cfg.mlpg_impl != "dense", "the stencil MLPG")):
-            if flag:
-                raise NotImplementedError(
-                    f"{what} is not ported to gantts_tpu_torch yet")
+    def __init__(self, cfg: StepConfig, Y_mean, Y_std, device,
+                 model_ref=None):
+        if cfg.mlpg_impl != "dense":
+            raise NotImplementedError(
+                "the stencil MLPG is not ported to gantts_tpu_torch yet")
+        if cfg.has_ref and model_ref is None:
+            raise ValueError("has_ref needs the reference discriminator "
+                             "(model_ref)")
+        self.model_ref = model_ref.eval() if model_ref is not None else None
         self.cfg = cfg
         self.device = torch.device(device)
         self.Y_mean = torch.as_tensor(Y_mean, dtype=torch.float32,
@@ -209,15 +217,18 @@ class GanTrainer:
         return y_hat, y_hat_static
 
     def step(self, gstate, dstate, x, y, lengths, R, adv_w, generator=None,
-             train=True):
+             train=True, z=None):
         """One step on a (B, T, ·) batch; updates the states in place when
-        ``train`` and returns ``(gstate, dstate, out)``."""
+        ``train`` and returns ``(gstate, dstate, out)``.  ``z`` (B, T,
+        noise_dim) is the generator's input noise when ``cfg.add_noise``."""
+        if self.cfg.add_noise and z is None:
+            raise ValueError("add_noise needs the generator input noise z")
         with torch.set_grad_enabled(train):
             return self._step(gstate, dstate, x, y, lengths, R, adv_w,
-                              generator, train)
+                              generator, train, z)
 
     def _step(self, gstate, dstate, x, y, lengths, R, adv_w, generator,
-              train):
+              train, z):
         cfg = self.cfg
         model_g, model_d = gstate.model, dstate.model
         model_g.train(train)
@@ -229,9 +240,20 @@ class GanTrainer:
             y, cfg.num_windows, cfg.stream_sizes, cfg.has_dynamic_features)
 
         # 1. generator forward
-        y_hat, y_hat_static = self._gen_forward(model_g, x, R, lengths,
+        gen_in = torch.cat([x, z], dim=-1) if cfg.add_noise else x
+        y_hat, y_hat_static = self._gen_forward(model_g, gen_in, R, lengths,
                                                 generator)
         out = {"num_frames": torch.sum(lengths)}
+
+        # 2. spoofing rate against the frozen reference discriminator
+        if cfg.has_ref:
+            with torch.no_grad():
+                y_ref = y_hat_static.detach()
+                if cfg.adversarial_streams is not None:
+                    y_ref = get_selected_static_stream(y_ref, cfg)
+                target = self.model_ref(y_ref, lengths)
+            out["regard_fake_as_natural"] = torch.sum(
+                (target > 0.5).float() * mask)
 
         def adv_input(y_sel):
             if cfg.adversarial_streams is not None:
@@ -240,7 +262,7 @@ class GanTrainer:
                 y_sel = torch.cat([x, y_sel], dim=-1)
             return y_sel
 
-        # 2. discriminator update on real and detached fake, one D call
+        # 3. discriminator update on real and detached fake, one D call
         if cfg.update_d:
             y_adv = adv_input(y_static)
             y_hat_adv = adv_input(y_hat_static.detach())
@@ -263,7 +285,7 @@ class GanTrainer:
                 real_correct_count=torch.sum((D_real > 0.5).float() * mask),
                 fake_correct_count=torch.sum((D_fake < 0.5).float() * mask))
 
-        # 3. generator update through the just-updated, frozen discriminator
+        # 4. generator update through the just-updated, frozen discriminator
         if cfg.update_g:
             loss_mge = masked_mse_loss(y_hat_static, y_static, mask=mask)
             loss_mse = masked_mse_loss(y_hat, y, mask=mask)
@@ -283,7 +305,7 @@ class GanTrainer:
             out.update(mse=loss_mse.detach(), mge=loss_mge.detach(),
                        loss_adv=loss_adv.detach(), generator=loss_g.detach())
 
-        # 4. distortion metrics, every batch
+        # 5. distortion metrics, every batch
         with torch.no_grad():
             out.update(compute_distortions(
                 y_static, y_hat_static.detach(), self.Y_mean, self.Y_std,

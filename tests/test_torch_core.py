@@ -14,8 +14,8 @@ from gantts_tpu.core import paramgen as jp
 from gantts_tpu.core import streams as js
 from gantts_tpu.core.windows import unit_variance_mlpg_matrix as jax_R
 from gantts_tpu.train import metrics as jmet
-from gantts_tpu_torch import _shared
-from gantts_tpu_torch.core import masking, paramgen, streams
+from gantts_tpu_torch import hparams
+from gantts_tpu_torch.core import masking, paramgen, streams, windows
 from gantts_tpu_torch.train import metrics
 
 torch.set_num_threads(1)
@@ -38,16 +38,17 @@ def _batch(seed, B=3, T=40, D=187):
 
 
 def test_shared_host_code_is_the_jax_packages():
-    """The by-path loader gives the same bundles and the same MLPG matrix
-    (the port solves with scipy, the JAX package with its C++ solver)."""
-    assert (_shared.hparams.tts_acoustic.values().keys()
+    """The port's own copies of the host code give the same bundles and the
+    same MLPG matrix (the port solves with scipy, the JAX package with its
+    C++ solver where that is built)."""
+    assert (hparams.tts_acoustic.values().keys()
             == jax_hparams.tts_acoustic.values().keys())
-    assert (_shared.hparams.tts_acoustic.generator_params
+    assert (hparams.tts_acoustic.generator_params
             == jax_hparams.tts_acoustic.generator_params)
-    hp = _shared.hparams.tts_acoustic.copy().parse("batch_size=7")
-    assert hp.batch_size == 7 and _shared.hparams.tts_acoustic.batch_size == 20
-    W = _shared.hparams.tts_acoustic.windows
-    np.testing.assert_allclose(_shared.unit_variance_mlpg_matrix(W, 50),
+    hp = hparams.tts_acoustic.copy().parse("batch_size=7")
+    assert hp.batch_size == 7 and hparams.tts_acoustic.batch_size == 20
+    W = hparams.tts_acoustic.windows
+    np.testing.assert_allclose(windows.unit_variance_mlpg_matrix(W, 50),
                                jax_R(W, 50), atol=1e-6)
 
 
@@ -82,8 +83,8 @@ def test_streams_match_jax():
 
 def test_multi_stream_mlpg_matches_jax():
     _, x, _ = _batch(3)
-    R = _shared.unit_variance_mlpg_matrix(_shared.hparams.tts_acoustic
-                                          .windows, x.shape[1])
+    R = windows.unit_variance_mlpg_matrix(hparams.tts_acoustic.windows,
+                                          x.shape[1])
     got = paramgen.multi_stream_mlpg(torch.tensor(x), torch.tensor(R),
                                      STREAMS, DYN)
     ref = jp.multi_stream_mlpg(jnp.asarray(x), jnp.asarray(R), STREAMS, DYN)
@@ -97,9 +98,9 @@ def test_mlpg_exactness_invariant():
     rs = np.random.RandomState(42)
     T, S = 40, 6
     s = rs.randn(T, S)
-    u = _shared.delta_features(s, _shared.windows.DEFAULT_WINDOWS)
-    R = torch.tensor(_shared.unit_variance_mlpg_matrix(
-        _shared.windows.DEFAULT_WINDOWS, T))
+    u = windows.delta_features(s, windows.DEFAULT_WINDOWS)
+    R = torch.tensor(windows.unit_variance_mlpg_matrix(
+        windows.DEFAULT_WINDOWS, T))
     out = paramgen.unit_variance_mlpg(R, torch.tensor(u, dtype=torch.float32))
     assert out.shape == (T, S)
     assert np.abs(out.numpy() - s).max() < 1e-6 * max(np.abs(s).max(), 1)

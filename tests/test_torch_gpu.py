@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from gantts_tpu_torch.kernels import linear_scan  # noqa: F401  (counters)
 from gantts_tpu_torch.kernels import lstm_scan  # noqa: F401  (its counters)
 from gantts_tpu_torch.kernels import sru_scan as K
 
@@ -76,7 +77,9 @@ def test_kernels_match_plain_versions(cuda, dt, reverse, use_relu, D):
     torch.cuda.synchronize()
     assert dict(K.launch_counts) == {"sru_proj_gemm": 1, "sru_fwd_scan": 1,
                                      "sru_bwd_scan": 1, "lstm_fwd_scan": 0,
-                                     "lstm_bwd_scan": 0}
+                                     "lstm_bwd_scan": 0,
+                                     "linear_recurrence_fwd": 0,
+                                     "linear_recurrence_bwd": 0}
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -115,7 +118,9 @@ def test_srurnn_step_launches_every_kernel(cuda):
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
     assert dict(K.launch_counts) == {"sru_proj_gemm": 4, "sru_fwd_scan": 4,
                                      "sru_bwd_scan": 4, "lstm_fwd_scan": 0,
-                                     "lstm_bwd_scan": 0}
+                                     "lstm_bwd_scan": 0,
+                                     "linear_recurrence_fwd": 0,
+                                     "linear_recurrence_bwd": 0}
 
 
 @pytest.mark.parametrize("K_, N_", [(425, 2048), (70, 180), (64, 192)])
@@ -236,7 +241,8 @@ def test_lstmrnn_step_launches_every_kernel(cuda):
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
     assert dict(K.launch_counts) == {
         "sru_proj_gemm": 2, "sru_fwd_scan": 0, "sru_bwd_scan": 0,
-        "lstm_fwd_scan": 2, "lstm_bwd_scan": 2}
+        "lstm_fwd_scan": 2, "lstm_bwd_scan": 2, "linear_recurrence_fwd": 0,
+        "linear_recurrence_bwd": 0}
 
 
 def test_lstm_forward_matches_cudnn(cuda):
@@ -270,3 +276,103 @@ def test_lstm_forward_matches_cudnn(cuda):
     finally:
         torch.backends.cudnn.allow_tf32 = allow_tf32
     assert _rel(y, y_ref) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The linear recurrence of the k=3 SRU layer.  The kernels round each product
+# and sum on its own, in the plain version's order, so the two should agree
+# exactly; the limit is 1e-6 of scale.  T=37 is not a multiple of the
+# kernels' unroll and B*H=240 lanes do not fill their last block; the second
+# shape is the step's.
+# ---------------------------------------------------------------------------
+
+
+def _linear_inputs(dev, Tn, Bn, Hn, seed=0):
+    rs = np.random.RandomState(seed)
+    lengths = np.r_[rs.randint(1, Tn, Bn - 1), Tn]
+    m = (np.arange(Tn)[:, None] < lengths[None, :])[..., None]
+    f = np.where(m, 1 / (1 + np.exp(-rs.randn(Tn, Bn, Hn))), 1.0)
+    b = np.where(m, rs.randn(Tn, Bn, Hn) * 0.5, 0.0)
+    g = rs.randn(Tn, Bn, Hn)
+    return [torch.tensor(a, dtype=torch.float32, device=dev)
+            for a in (f, b, g)]
+
+
+@pytest.mark.parametrize("Tn,Bn,Hn", [(T, B, H), (512, 20, 512)])
+def test_linear_recurrence_kernels_match_plain_versions(cuda, Tn, Bn, Hn):
+    L = linear_scan
+    f, b, g = _linear_inputs(cuda, Tn, Bn, Hn)
+    K.reset_launch_counts()
+    c_k = L.linear_recurrence_fwd(f, b)
+    c_p = L.linear_recurrence_fwd_plain(f, b)
+    df_k, db_k = L.linear_recurrence_bwd(g, f, c_p)
+    df_p, db_p = L.linear_recurrence_bwd_plain(g, f, c_p)
+    torch.cuda.synchronize()
+    for got, ref in ((c_k, c_p), (df_k, df_p), (db_k, db_p)):
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        assert _rel(got, ref) <= 1e-6
+    assert L.launch_counts["linear_recurrence_fwd"] == 1
+    assert L.launch_counts["linear_recurrence_bwd"] == 1
+
+
+def test_linear_recurrence_refuses_what_it_does_not_take(cuda):
+    L = linear_scan
+    f, b, g = _linear_inputs(cuda, T, B, H)
+    for args in ((f.double(), b.double()), (f, b.cpu()),
+                 (f.transpose(1, 2), b.transpose(1, 2)), (f, b[:, :, :-1]),
+                 (f[:0], b[:0])):
+        with pytest.raises(ValueError):
+            L.linear_recurrence_fwd(*args)
+    with pytest.raises(ValueError):
+        L.linear_recurrence_bwd(g.bfloat16(), f, f)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k3_layer_on_card_matches_cpu(cuda, reverse):
+    """The k=3 SRULayer forward and backward, f32: the card (cuBLAS without
+    TF32, the linear-recurrence kernels) against the CPU's plain versions,
+    every gradient, to 1e-4 of scale as the other layers."""
+    from gantts_tpu_torch.models.sru import SRULayer
+
+    results = []
+    for dev in (torch.device("cpu"), cuda):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        layer = SRULayer(H, H, use_relu=1, reverse=reverse, generator=gen,
+                         device=dev)
+        x, _, _, lengths, gh = _inputs(dev, torch.float32, seed=5, D=H)
+        if dev.type == "cpu":
+            state = {k: v.clone() for k, v in layer.state_dict().items()}
+        else:
+            layer.load_state_dict(state)
+        x.requires_grad_(True)
+        h = layer(x, lengths)
+        h.backward(gh)
+        results.append([h, x.grad] + [p.grad for p in layer.parameters()])
+    for got, ref in zip(results[1], results[0]):
+        assert _rel(got.cpu(), ref) < 1e-4
+
+
+def test_unidirectional_srurnn_launches_every_kernel(cuda):
+    """A 3-layer unidirectional SRURNN forward and backward on the card:
+    layer 0 through the SRU kernels, layers 1-2 (k=3) through the
+    linear-recurrence kernels, once per layer each way."""
+    from gantts_tpu_torch.models import SRURNN
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    model = SRURNN(in_dim=D, out_dim=7, num_hidden=3, hidden_dim=H,
+                   bidirectional=False, use_relu=1, rnn_dropout=0.2,
+                   dropout=0.2, compute_dtype="bfloat16", generator=gen,
+                   device=cuda).train()
+    x, _, _, lengths, _ = _inputs(cuda, torch.float32)
+    K.reset_launch_counts()
+    y = model(x.transpose(0, 1), lengths, generator=gen)
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    assert y.shape == (B, T, 7) and torch.isfinite(y).all()
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+    assert dict(K.launch_counts) == {
+        "sru_proj_gemm": 1, "sru_fwd_scan": 1, "sru_bwd_scan": 1,
+        "lstm_fwd_scan": 0, "lstm_bwd_scan": 0, "linear_recurrence_fwd": 2,
+        "linear_recurrence_bwd": 2}

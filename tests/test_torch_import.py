@@ -14,23 +14,13 @@ torch.set_num_threads(1)
 
 REPO = dirname(dirname(os.path.abspath(__file__)))
 PORT = join(REPO, "gantts_tpu_torch")
-MODULES = [
-    "gantts_tpu_torch",
-    "gantts_tpu_torch._shared",
-    "gantts_tpu_torch.convert",
-    "gantts_tpu_torch.core",
-    "gantts_tpu_torch.kernels",
-    "gantts_tpu_torch.kernels._build",
-    "gantts_tpu_torch.kernels.lstm_scan",
-    "gantts_tpu_torch.kernels.sru_scan",
-    "gantts_tpu_torch.models",
-    "gantts_tpu_torch.models.recurrent",
-    "gantts_tpu_torch.train",
-    "gantts_tpu_torch.train.metrics",
-    "gantts_tpu_torch.train.optim",
-    "gantts_tpu_torch.train.setup",
-    "gantts_tpu_torch.train.step",
-]
+JAX_PACKAGE = join(REPO, "gantts_tpu")
+MODULES = sorted(
+    "gantts_tpu_torch" + "".join(
+        "." + p for p in os.path.relpath(join(root, f), PORT)
+        .removesuffix(".py").removesuffix("__init__").strip(os.sep)
+        .split(os.sep) if p)
+    for root, _, files in os.walk(PORT) for f in files if f.endswith(".py"))
 
 
 def _run(code):
@@ -41,15 +31,23 @@ def _run(code):
 
 def test_port_imports_without_jax():
     """A fresh interpreter that imports every module of the port (and uses
-    the shared host code) has neither jax nor gantts_tpu loaded."""
+    its host code) has neither jax nor gantts_tpu loaded, and no loaded
+    module's file lies under gantts_tpu/."""
+    assert "gantts_tpu_torch.train.__main__" in MODULES
+    assert "gantts_tpu_torch.kernels.linear_scan" in MODULES
     proc = _run(
-        "import importlib, sys\n"
+        "import importlib, os, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
-        "from gantts_tpu_torch._shared import hparams, "
+        "from gantts_tpu_torch import hparams\n"
+        "from gantts_tpu_torch.core.windows import "
         "unit_variance_mlpg_matrix\n"
         "unit_variance_mlpg_matrix(hparams.tts_acoustic.windows, 16)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'gantts_tpu'))\n"
+        f"jax_dir = {JAX_PACKAGE!r} + os.sep\n"
+        "bad += sorted(m.__name__ for m in list(sys.modules.values())\n"
+        "              if os.path.abspath(getattr(m, '__file__', None) or '')"
+        ".startswith(jax_dir))\n"
         "print(bad)\n")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]", proc.stdout
@@ -59,26 +57,40 @@ def test_kernel_modules_import_without_cuda():
     """Importing the kernel modules builds nothing and loads no library:
     nvcc is reached only when a CUDA tensor reaches a wrapper."""
     proc = _run(
-        "from gantts_tpu_torch.kernels import _build, lstm_scan, sru_scan\n"
+        "from gantts_tpu_torch.kernels import _build, linear_scan, "
+        "lstm_scan, sru_scan\n"
         "print(_build.build_log, sru_scan._lib.cache_info().currsize,\n"
-        "      lstm_scan._lib.cache_info().currsize)\n")
+        "      lstm_scan._lib.cache_info().currsize,\n"
+        "      linear_scan._lib.cache_info().currsize)\n")
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "{} 0 0", proc.stdout
+    assert proc.stdout.strip() == "{} 0 0 0", proc.stdout
 
 
 def test_port_sources_name_no_jax():
-    """No source file of the port imports jax or the JAX package; only
-    ``_shared`` names the JAX package's files, by path."""
-    pat = re.compile(r"^\s*(import jax|from jax|import gantts_tpu\b"
-                     r"|from gantts_tpu[ .])", re.M)
+    """No source file of the port, nor chip_smoke.py, imports jax or the JAX
+    package, or names a path under gantts_tpu/ in a string, or loads a
+    module by file path.  Docstrings and comments name their counterparts
+    as gantts_tpu/<file>, and chip_smoke.py's kernel records name the TPU
+    kernel each replaces as "gantts_tpu/<file>:<line>": neither is a path
+    that code could open."""
+    imports = re.compile(r"^\s*(import jax|from jax|import gantts_tpu\b"
+                         r"|from gantts_tpu[ .])|spec_from_file_location",
+                         re.M)
+    paths = re.compile(r"""["']gantts_tpu(/[\w./-]*)?["']""")
+    sources = [join(root, f) for root, _, files in os.walk(PORT)
+               for f in files if f.endswith((".py", ".cu"))]
+    sources.append(join(REPO, "chip_smoke.py"))
     found = []
-    for root, _, files in os.walk(PORT):
-        for f in files:
-            if f.endswith(".py"):
-                with open(join(root, f)) as fh:
-                    if pat.search(fh.read()):
-                        found.append(join(root, f))
+    for src in sources:
+        with open(src) as fh:
+            text = fh.read()
+        if imports.search(text) or paths.search(text):
+            found.append(src)
     assert found == []
+    assert paths.search('join(REPO, "gantts_tpu", "hparams.py")')
+    assert paths.search("open('gantts_tpu/core/windows.py')")
+    assert not paths.search('"replaces": "gantts_tpu/kernels/x.py:85"')
+    assert not paths.search('"gantts_tpu_torch/kernels/csrc/x.cu"')
 
 
 def test_wrappers_take_plain_versions_only_on_cpu():

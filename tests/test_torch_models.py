@@ -93,8 +93,9 @@ def test_mlp_forward_matches_jax():
 
 
 def test_k3_layer_matches_jax_with_gradients():
-    """D == H selects the k=3 highway (x' is the raw input), which runs the
-    plain scan under autograd: forward and parameter gradients."""
+    """D == H selects the k=3 highway (x' is the raw input), whose
+    recurrence is ``LinearRecurrence`` (its plain versions on CPU tensors):
+    forward and parameter gradients."""
     kw = dict(in_dim=24, out_dim=5, num_hidden=2, hidden_dim=24,
               bidirectional=False, use_relu=0)
     x, lengths = _batch(2, 3, 33, 24)

@@ -47,7 +47,8 @@ from gantts_tpu.train import StepConfig as JaxConfig
 from gantts_tpu.train.setup import init_models_and_states as jax_init
 from gantts_tpu.train.step import TrainState as JaxState
 from gantts_tpu_torch import convert
-from gantts_tpu_torch._shared import hparams, unit_variance_mlpg_matrix
+from gantts_tpu_torch import hparams
+from gantts_tpu_torch.core.windows import unit_variance_mlpg_matrix
 from gantts_tpu_torch.train import GanTrainer, StepConfig, TrainState
 from gantts_tpu_torch.train.setup import init_models_and_states
 
