@@ -9,15 +9,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
   1. device: require CUDA, print the card's name and power limit;
   2. build the CUDA kernels from gantts_tpu_torch/kernels/csrc/, one nvcc
-     per source, all started together;
+     per source, all started together, and check with cuobjdump that the
+     bf16 GEMM's SASS holds wgmma (HGMMA) and TMA loads (UTMALDG);
   3. hold each kernel against its plain PyTorch version at the training
      steps' shapes (T=512, B=20, H=512, D in {425, 1024}, float32 and
      bfloat16; the SRU kernels in both directions with relu, the LSTM
      kernels with two directions and with one, forward and reversed; (3c)
      the linear recurrence of the k=3 SRU layer in float32, with ragged
-     lengths), and time both, beside the library call that computes the
-     same function where there is one (cuBLAS for the GEMM, a cuDNN
-     bidirectional LSTM layer for the LSTM scans);
+     lengths; the bf16 GEMM also at the LSTM path's N = 8H), and time both,
+     beside the library call that computes the same function where there
+     is one (cuBLAS for the GEMM, at every (K, N) the main paths give it; a
+     cuDNN bidirectional LSTM layer for the LSTM scans);
   4. the main paths, each with its launch counters set to 0 just before
      and checked just after, and every plain version refused while it
      runs: full-width tts_acoustic GAN training steps (MLP discriminator,
@@ -52,6 +54,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -237,6 +240,35 @@ def write_acoustic_corpus(dst, num=30, lin_dim=LIN_DIM, mgc_dim=60,
         np.save(os.path.join(dst, "Y_acoustic", name), y.astype(np.float32))
 
 
+def check_gemm_sass(lib_path):
+    """Phase 2: the bf16 GEMM's SASS, from cuobjdump, must hold wgmma
+    (HGMMA) and TMA loads (UTMALDG): without them it cannot reach the
+    tensor cores' full rate."""
+    from gantts_tpu_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        print("[2] cuobjdump is missing: the GEMM's SASS is not checked")
+        return
+    proc = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"cuobjdump failed: {proc.stderr.strip()[-500:]}")
+    counts, name = {"HGMMA": 0, "UTMALDG": 0}, ""
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1]
+        elif "proj_gemm_bf16" in name:
+            for op in counts:
+                counts[op] += op in line
+    print(f"[2] SASS of proj_gemm_bf16: {counts['HGMMA']} HGMMA, "
+          f"{counts['UTMALDG']} UTMALDG instructions")
+    if not all(counts.values()):
+        fail("the bf16 GEMM's SASS lacks wgmma (HGMMA) or TMA (UTMALDG)")
+
+
 def check(kernel, what, dt, D, got, ref, lim, errs):
     rel, ab = rel_err(got, ref)
     ok = rel <= lim and math.isfinite(rel)
@@ -323,53 +355,71 @@ def phase_kernels(dev, card, errs):
                 ]
             for kernel, what, got, ref, lim in checks:
                 check(kernel, what, dt, D, got, ref, lim, errs)
+    # the GEMM at the LSTM path's width: both directions' W_ih, N = 8H
+    bf = torch.bfloat16
+    for D in (LIN_DIM, 2 * H):
+        x2 = torch.randn((T * B, D), generator=gen, device=dev).to(bf)
+        w_c = uniform(D, 8 * H).to(bf)
+        check("sru_proj_gemm", f"u:N={8 * H}", bf, D,
+              K.sru_proj_gemm(x2, w_c), K.sru_proj_gemm_plain(x2, w_c),
+              TOL[bf], errs)
 
-    # times at the main path's shapes: bf16 I/O, D=1024 (layers 1-5)
-    times = {}
+    # times at the main paths' shapes: bf16 I/O at every (K, N) the paths
+    # give the GEMM (K = 425, which the wrapper copies into rows of 432, or
+    # 2H; N = 4H, or 8H on the LSTM path) beside torch.mm, and at K = 432
+    # (an x already 8-aligned, no copy); f32 at N = 4H
+    padded = LIN_DIM + -LIN_DIM % 8
+    gemm_shapes = {bf: [(D, N) for D in (2 * H, LIN_DIM, padded)
+                        for N in (4 * H, 8 * H)],
+                   torch.float32: [(2 * H, 4 * H), (LIN_DIM, 4 * H)]}
+    times, gemm_library = {}, {}
     for dt in (torch.bfloat16, torch.float32):
-        for D in (2 * H, LIN_DIM):
+        for D, N in gemm_shapes[dt]:
             x2 = torch.randn((T * B, D), generator=gen, device=dev).to(dt)
-            w_c = uniform(D, 4 * H).to(dt)
-            times[("sru_proj_gemm", dt, D)] = (
+            w_c = uniform(D, N).to(dt)
+            times[("sru_proj_gemm", dt, D, N)] = (
                 time_ms(lambda: K.sru_proj_gemm(x2, w_c), 20),
                 time_ms(lambda: K.sru_proj_gemm_plain(x2, w_c), 20))
-            if dt == torch.bfloat16 and D == 2 * H:
-                gemm_library_ms = time_ms(lambda: torch.mm(x2, w_c), 20)
+            if dt == bf:
+                gemm_library[(D, N)] = time_ms(lambda: torch.mm(x2, w_c), 20)
         u = torch.randn((T, B, 4 * H), generator=gen, device=dev).to(dt)
         bias4 = uniform(4 * H)
         gh = torch.randn((T, B, H), generator=gen, device=dev).to(dt)
         _, c = K.sru_fwd_scan(u, bias4, lengths, False, 1)
-        times[("sru_fwd_scan", dt, None)] = (
+        times[("sru_fwd_scan", dt, None, None)] = (
             time_ms(lambda: K.sru_fwd_scan(u, bias4, lengths, False, 1), 20),
             time_ms(lambda: K.sru_fwd_scan_plain(u, bias4, lengths, False,
                                                  1), 2))
-        times[("sru_bwd_scan", dt, None)] = (
+        times[("sru_bwd_scan", dt, None, None)] = (
             time_ms(lambda: K.sru_bwd_scan(u, bias4, lengths, c, gh, False,
                                            1), 20),
             time_ms(lambda: K.sru_bwd_scan_plain(u, bias4, lengths, c, gh,
                                                  False, 1), 2))
-    for (kernel, dt, D), (ms, plain_ms) in times.items():
-        shape = f"D={D} " if D else ""
+    M, nv = T * B, float(lengths.sum())
+    for (kernel, dt, D, N), (ms, plain_ms) in times.items():
+        shape, lib = "", ""
+        if D:
+            shape = f"K={D} N={N} ({2 * M * D * N / ms / 1e9:.1f} TFLOP/s) "
+        if (D, N) in gemm_library and dt == bf:
+            lib_ms = gemm_library[(D, N)]
+            lib = f"  torch.mm {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)"
         print(f"[3] time {kernel:13s} {str(dt)[6:]:8s} {shape}"
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  [{card}]")
-    print(f"[3] time torch.mm (cuBLAS) bfloat16 D={2 * H} "
-          f"{gemm_library_ms:.4f} ms  [{card}]")
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms{lib}  [{card}]")
     # Bounds at the timed bf16 shapes.  The scans need u, c and gh only on
     # valid frames (``nv`` of T*B): padding is masked out.
-    bf = torch.bfloat16
-    M, D, N, nv = T * B, 2 * H, 4 * H, float(lengths.sum())
+    D, N = 2 * H, 4 * H
     return {
         "sru_proj_gemm": record(
-            *times[("sru_proj_gemm", bf, D)], 2 * (M * D + D * N + M * N),
-            2 * M * D * N, bf, gemm_library_ms),
+            *times[("sru_proj_gemm", bf, D, N)], 2 * (M * D + D * N + M * N),
+            2 * M * D * N, bf, gemm_library[(D, N)]),
         # per valid lane and step: two sigmoids and the cell, ~16 f32 ops
         "sru_fwd_scan": record(
-            *times[("sru_fwd_scan", bf, None)],
+            *times[("sru_fwd_scan", bf, None, None)],
             nv * N * 2 + N * 4 + B * 4 + M * H * (2 + 4), 16 * nv * H,
             torch.float32),
         # ~30 f32 ops per valid lane and step
         "sru_bwd_scan": record(
-            *times[("sru_bwd_scan", bf, None)],
+            *times[("sru_bwd_scan", bf, None, None)],
             nv * (N * 2 + H * 4 + H * 2) + N * 4 + B * 4 + M * N * 2
             + B * 2 * H * 4, 30 * nv * H, torch.float32),
     }
@@ -996,8 +1046,10 @@ def main():
     for name, (secs, log) in _build.build_log.items():
         print(f"[2] nvcc {name}: {secs:.2f} s")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(k in line for k in ("registers", "spill", "error",
+                                       "warning", "wgmma", "setmaxnreg")):
                 print(f"[2]   {line.strip()}")
+    check_gemm_sass(sru_scan._lib()._name)
 
     errs = {k: 0.0 for k in KERNELS}
     recs = phase_kernels(dev, card, errs)

@@ -4,50 +4,47 @@
 //
 //   sru_proj_gemm  u = x @ W, the `_proj_u` half of `_psru_fwd_kernel`.
 //                  (T*B, D) x (D, 4H) with f32 accumulation, u stored in the
-//                  I/O dtype.  Bound by compute: 43 GFLOP per call at
-//                  T=512, B=20, D=1024, H=512.  bf16 I/O runs on the tensor
-//                  cores through WMMA 16x16x16 fragments (128x128 block
-//                  tile, eight warps of 64x32, K tiles double-buffered in
-//                  shared memory, 16-byte loads).  f32 I/O
-//                  stays off the tensor cores (TF32 would lose the
-//                  exactness the f32 path promises) and uses a shared-
-//                  memory-tiled FMA kernel (64x64 tile, 4x4 outputs per
-//                  thread, not double-buffered).  wgmma and TMA, the way to
-//                  the card's full rate, are not used yet.
+//                  I/O dtype.  Bound by the tensor cores: 43 GFLOP per call
+//                  at T=512, B=20, D=1024, H=512, 0.043 ms at the card's
+//                  989 TFLOP/s.  bf16 I/O is a warp-specialized wgmma kernel
+//                  (see "u = x @ W, bf16" below): TMA loads into a ring of
+//                  shared-memory stages, two consumer warpgroups issuing
+//                  wgmma m64n256k16 on a 128x256 block tile, persistent
+//                  blocks.  f32 I/O stays off the tensor cores (TF32 would
+//                  lose the exactness the f32 path promises) and uses a
+//                  shared-memory-tiled FMA kernel (64x64 tile, 4x4 outputs
+//                  per thread).  Rounding: the tensor cores sum the K
+//                  products in f32 in their own order; each output is
+//                  rounded once to bf16 (nearest even), as the plain
+//                  version's f32-output matmul followed by a cast.
 //
 //   sru_fwd_scan   the scan half of `_psru_fwd_kernel` and all of
 //                  `_fused_fwd_kernel`: bias add, gates, length mask, the
 //                  recurrence c_t = fm_t * c_{t-1} + bm_t and the highway
-//                  output, from a precomputed u.
+//                  output, from a precomputed u.  One thread owns one
+//                  (b, h) lane and walks T with c in a register, issuing
+//                  the loads of kUnroll steps before the dependent
+//                  arithmetic; blocks of 64 threads spread the 10,240 lanes
+//                  of the step over all SMs.  Latency-bound: too few loads
+//                  in flight for the card's bandwidth.
 //
 //   sru_bwd_scan   `_fused_bwd_kernel`: the adjoint recurrence
-//                  ghat_t = a_t + fm_{t+1} * ghat_{t+1}, the four du blocks,
-//                  and per-row partial sums of the f/r bias gradient.
-//
-// The scans are sequential in time and elementwise across (b, h).  One thread
-// owns one (b, h) lane and walks T in traversal order with its recurrence
-// state in a register; neighbouring threads own neighbouring h, so every load
-// and store is coalesced along h.  At B=20, H=512 that is 10,240 lanes, a
-// few warps per SM on 132 SMs, so the scans are bound by memory latency
-// rather than bandwidth (u alone is 42 MB a call in bf16).  The design hides
-// latency with instruction-level parallelism instead of occupancy: the loads
-// of kUnroll time steps are issued together before the dependent arithmetic
-// (they do not depend on the carry), and blocks are kept small (64 threads)
-// so the lanes spread over as many SMs as possible.
+//                  ghat_t = a_t + fm_{t+1} * ghat_{t+1} (a = gh m r g'(c)),
+//                  the four du blocks and the f/r bias gradient, time-chunked
+//                  (see "Backward scan" below).  Bound by bytes: u, c and gh
+//                  in, du out, 97 MB at the step's shape in bf16, 0.029 ms at
+//                  3.35 TB/s.
 //
 // The TPU's sequential grid forced a per-chunk carry array (`cb`) so that the
 // backward could rebuild c_{t-1} at chunk edges.  Here c_{t-1} is read
 // straight from the full f32 c array, so `cb` is dropped.
 //
-// The bias gradient is reduced per lane over T in a register and written as
-// (B, 2H) partials, which the caller sums over B: deterministic, no atomics.
-//
 // Every entry point launches on the caller's stream, allocates nothing, and
-// returns cudaGetLastError().
+// returns a cudaError_t code (0 on success).
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -75,12 +72,12 @@ __device__ __forceinline__ float sigmoidf(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// u = x @ W
+// u = x @ W, f32
 // ---------------------------------------------------------------------------
 
 constexpr int kTile = 64;
 
-// f32: 256 threads as a 16x16 grid, each owning a 4x4 block of C.  Rows and
+// 256 threads as a 16x16 grid, each owning a 4x4 block of C.  Rows and
 // columns of a thread's block are strided by 16 so that a warp reads
 // consecutive shared-memory words.
 constexpr int kSimtK = 16;
@@ -132,131 +129,380 @@ proj_gemm_f32(const float* __restrict__ A, const float* __restrict__ Bm,
   }
 }
 
-// bf16: a 128x128 tile of C per block of eight warps (2 x 4), each warp
-// owning 64x32 as 4x2 WMMA accumulators in f32.  K advances 32 at a time
-// through two shared-memory buffers: the global loads of the next K tile
-// are issued into registers before the tensor cores work on the current
-// one, and stored to the other buffer after, so one barrier per K tile
-// suffices.  Every load is 16 bytes (8 bf16), so K and N must be multiples
-// of 8 and both operands 16-byte aligned (the caller zero-pads a ragged K,
-// such as the first layer's 425); the ragged M, N and K tile edges are
-// zero-filled.  Row strides are padded by 8 elements, which keeps every
-// fragment pointer 32-byte aligned as WMMA requires.
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kAStride = kBK + 8;
-constexpr int kBStride = kBN + 8;
-constexpr int kGemmThreads = 256;
-constexpr int kPerThread = kBM * kBK / kGemmThreads;  // 16, as kBK * kBN
+// ---------------------------------------------------------------------------
+// u = x @ W, bf16: wgmma fed by TMA
+//
+// What bounds it: the tensor cores, and only wgmma reaches their full rate.
+// The design, per block of 384 threads (three warpgroups):
+//
+//   * A 128x256 tile of C per block, K in steps of 64.  x (M, K) is
+//     K-contiguous and W (K, N) N-contiguous; both are read as they lie, by
+//     TMA boxes of 64 x 128 bytes with the 128-byte swizzle that wgmma's
+//     descriptors expect (A K-major; B "transposed", MN-major, which wgmma
+//     takes for 16-bit types).  A stage holds A's 128x64 box and four 64x64
+//     boxes of B: 48 KB; four stages ring in shared memory.
+//   * Warpgroup 2 is the producer: it gives its registers away (setmaxnreg)
+//     and one thread keeps the ring full, waiting on each stage's "empty"
+//     mbarrier and arming its "full" one with the stage's byte count.
+//   * Warpgroups 0 and 1 are consumers, rows 0-63 and 64-127 of the tile:
+//     per stage four wgmma m64n256k16, f32 accumulators in registers (128
+//     a thread).  One wgmma group stays in flight: a stage is released once
+//     the products of the next one have been issued.
+//   * Blocks are persistent, one per SM, walking the tiles N-fastest (so the
+//     132 tiles in flight share rows of x in L2); the producer runs ahead
+//     into the next tile while the consumers store the last one.
+//   * Epilogue: each accumulator pair is rounded to bf16x2 (nearest even);
+//     the four threads of a quad exchange words by shuffles so that each
+//     stores 8 consecutive columns with one 16-byte store.
+//   * Ragged edges: TMA zero-fills what lies outside x and W (ragged M, N
+//     and K), and the epilogue stores only rows < M and columns < N.  TMA
+//     needs 16-byte row strides and bases: x's rows lie ``ldx`` elements
+//     apart (a multiple of 8, at least K), N is a multiple of 8 and both
+//     operands are 16-byte aligned.  A K that is not a multiple of 8 (the
+//     first layer's 425) thus needs only x copied into rows of a wider
+//     stride; W is read as it lies.
+// ---------------------------------------------------------------------------
 
-struct TileRegs {
-  uint4 a[kPerThread / 8], b[kPerThread / 8];
+constexpr int kGBM = 128, kGBN = 256, kGBK = 64, kStages = 4;
+constexpr int kGemmThreads = 384;
+constexpr int kConsumerThreads = 256;
+constexpr int kATileBytes = kGBM * kGBK * 2;   // 16 KB
+constexpr int kBBoxBytes = kGBK * 64 * 2;      // one 64x64 box of W, 8 KB
+constexpr int kStageBytes = kATileBytes + 4 * kBBoxBytes;
+constexpr int kGemmSmem = kStages * kStageBytes + 1024;  // + alignment slack
 
-  __device__ void load(const __nv_bfloat16* A, const __nv_bfloat16* Bm,
-                       int M, int N, int K, int m0, int n0, int k0,
-                       int tid) {
-#pragma unroll
-    for (int i = 0; i < kPerThread / 8; ++i) {
-      const int v = tid + i * kGemmThreads;
-      const int r = v / (kBK / 8), c = (v % (kBK / 8)) * 8;
-      const int gm = m0 + r, gk = k0 + c;
-      a[i] = (gm < M && gk < K)
-                 ? *reinterpret_cast<const uint4*>(A + (size_t)gm * K + gk)
-                 : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int i = 0; i < kPerThread / 8; ++i) {
-      const int v = tid + i * kGemmThreads;
-      const int r = v / (kBN / 8), c = (v % (kBN / 8)) * 8;
-      const int gk = k0 + r, gn = n0 + c;
-      b[i] = (gk < K && gn < N)
-                 ? *reinterpret_cast<const uint4*>(Bm + (size_t)gk * N + gn)
-                 : make_uint4(0, 0, 0, 0);
-    }
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
 
-  __device__ void store(__nv_bfloat16* As, __nv_bfloat16* Bs, int tid) const {
-#pragma unroll
-    for (int i = 0; i < kPerThread / 8; ++i) {
-      const int v = tid + i * kGemmThreads;
-      const int r = v / (kBK / 8), c = (v % (kBK / 8)) * 8;
-      *reinterpret_cast<uint4*>(As + r * kAStride + c) = a[i];
-    }
-#pragma unroll
-    for (int i = 0; i < kPerThread / 8; ++i) {
-      const int v = tid + i * kGemmThreads;
-      const int r = v / (kBN / 8), c = (v % (kBN / 8)) * 8;
-      *reinterpret_cast<uint4*>(Bs + r * kBStride + c) = b[i];
-    }
-  }
-};
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
 
-__global__ void __launch_bounds__(kGemmThreads)
-proj_gemm_bf16(const __nv_bfloat16* __restrict__ A,
-               const __nv_bfloat16* __restrict__ Bm,
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the phase of parity ``parity`` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle.  ``lbo`` and ``sbo`` in
+// bytes: for K-major A, sbo is the stride between groups of 8 rows (lbo is
+// unused); for MN-major B, lbo is the stride between 64-column atoms of N
+// and sbo the stride between groups of 8 rows of K.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator accesses across the
+// asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64x256 f32, 128 a thread) += A (64x16, K-major) * B (16x256, MN-major);
+// d is overwritten instead when scale_d is 0.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&w)[4], int i) {
+  return i == 0 ? w[0] : i == 1 ? w[1] : i == 2 ? w[2] : w[3];
+}
+
+__global__ void __launch_bounds__(kGemmThreads, 1)
+proj_gemm_bf16(const __grid_constant__ CUtensorMap map_a,
+               const __grid_constant__ CUtensorMap map_b,
                __nv_bfloat16* __restrict__ C, int M, int N, int K) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 As[2][kBM * kAStride];
-  __shared__ __align__(32) __nv_bfloat16 Bs[2][kBK * kBStride];
-  __shared__ __align__(32) float Cs[kGemmThreads / 32][16 * 16];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kStages], empty_bar[kStages];
+  const uint32_t smem = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms
+  const int tiles_n = (N + kGBN - 1) / kGBN;
+  const int tiles = ((M + kGBM - 1) / kGBM) * tiles_n;
+  const int nk = (K + kGBK - 1) / kGBK;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  TileRegs regs;
-  regs.load(A, Bm, M, N, K, m0, n0, 0, tid);
-  regs.store(As[0], Bs[0], tid);
-  __syncthreads();
-  const int nk = (K + kBK - 1) / kBK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) regs.load(A, Bm, M, N, K, m0, n0, (kt + 1) * kBK, tid);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], As[cur] + (wm + 16 * i) * kAStride + kk,
-                               kAStride);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs[cur] + kk * kBStride + wn + 16 * j,
-                               kBStride);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_u32(&full_bar[s]), 1);
+      mbar_init(smem_u32(&empty_bar[s]), kConsumerThreads);
     }
-    // the other buffer was last read before the previous barrier
-    if (kt + 1 < nk) regs.store(As[cur ^ 1], Bs[cur ^ 1], tid);
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // epilogue: each warp stages one 16x16 accumulator at a time
-  float* stage = Cs[warp];
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {
+    // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == kConsumerThreads) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / tiles_n) * kGBM, n0 = (tile % tiles_n) * kGBN;
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(smem_u32(&empty_bar[stage]), phase ^ 1);
+          const uint32_t full = smem_u32(&full_bar[stage]);
+          const uint32_t sa = smem + stage * kStageBytes;
+          mbar_expect_tx(full, kStageBytes);
+          tma_load_2d(sa, &map_a, full, kt * kGBK, m0);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gm = m0 + wm + 16 * i + e / 16;
-        const int gn = n0 + wn + 16 * j + e % 16;
-        if (gm < M && gn < N)
-          C[(size_t)gm * N + gn] = __float2bfloat16(stage[e]);
+          for (int q = 0; q < 4; ++q)
+            tma_load_2d(sa + kATileBytes + q * kBBoxBytes, &map_b, full,
+                        n0 + 64 * q, kt * kGBK);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
-      __syncwarp();
     }
+  } else {
+    // consumer warpgroups 0 and 1
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int lane = t % 32, quad = lane % 4;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile / tiles_n) * kGBM, n0 = (tile % tiles_n) * kGBN;
+      float d[128];  // the first product of a tile overwrites it (K > 0)
+      int prev = -1;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(smem_u32(&full_bar[stage]), phase);
+        const uint32_t sa = smem + stage * kStageBytes + wg * (64 * 128);
+        const uint32_t sb = smem + stage * kStageBytes + kATileBytes;
+        fence_acc(d);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kGBK / 16; ++kk)
+          wgmma_m64n256k16(d, smem_desc(sa + kk * 32, 16, 1024),
+                           smem_desc(sb + kk * 16 * 128, kBBoxBytes, 1024),
+                           kt > 0 || kk > 0);
+        wgmma_commit();
+        fence_acc(d);
+        wgmma_wait<1>();  // the previous stage's products are done
+        if (prev >= 0) mbar_arrive(smem_u32(&empty_bar[prev]));
+        prev = stage;
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(d);
+      if (prev >= 0) mbar_arrive(smem_u32(&empty_bar[prev]));
+
+      // Register i of a thread holds row (t / 32) * 16 + lane / 4 +
+      // 8 * ((i / 2) % 2) and column 8 * (i / 4) + 2 * quad + i % 2 of the
+      // warpgroup's 64x256 tile.
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = m0 + wg * 64 + (t / 32) * 16 + lane / 4 + 8 * hr;
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {  // four 8-column chunks at a time
+          uint32_t w[4], out[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            w[j] = pack_bf16x2(d[(4 * g + j) * 4 + hr * 2],
+                               d[(4 * g + j) * 4 + hr * 2 + 1]);
+          // After the exchange, out[s] is quad member s's pair of chunk
+          // 4g + quad: this thread's eight consecutive columns.
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int src = (quad - k) & 3;
+            const uint32_t v = __shfl_sync(0xffffffffu,
+                                           pick4(w, (quad + k) & 3),
+                                           (lane & ~3) | src);
+#pragma unroll
+            for (int s = 0; s < 4; ++s)
+              if (s == src) out[s] = v;
+          }
+          const int col = n0 + (4 * g + quad) * 8;
+          if (row < M && col < N)
+            *reinterpret_cast<uint4*>(C + (size_t)row * N + col) =
+                make_uint4(out[0], out[1], out[2], out[3]);
+        }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver API; the runtime hands out its entry
+// point, so the library needs no link against libcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// A row-major (rows, cols) bf16 matrix, rows ``ld`` elements apart, read
+// in boxes of (box_rows, 64) elements, 128 bytes a box row, with the
+// 128-byte swizzle; what lies outside the matrix reads as zero.
+bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int ld,
+              int box_rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_proj_gemm_bf16(const void* x, const void* w, void* u, int M,
+                                  int N, int K, int ldx, cudaStream_t s) {
+  if (ldx % 8 != 0 || ldx < K || N % 8 != 0 || (uintptr_t)x % 16 != 0 ||
+      (uintptr_t)w % 16 != 0 || (uintptr_t)u % 16 != 0)
+    return cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return cudaSuccess;
+  if (K == 0) return cudaMemsetAsync(u, 0, (size_t)M * N * 2, s);
+  CUtensorMap map_a, map_b;
+  if (!bf16_map(&map_a, x, M, K, ldx, kGBM) ||
+      !bf16_map(&map_b, w, K, N, N, kGBK))
+    return cudaErrorInvalidValue;
+  // the SM count, and the shared-memory opt-in once per device
+  static int sms_of[64];
+  int dev, sms;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64 || sms_of[dev] == 0) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(proj_gemm_bf16,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kGemmSmem);
+    if (e != cudaSuccess) return e;
+    if (dev < 64) sms_of[dev] = sms;
+  } else {
+    sms = sms_of[dev];
+  }
+  const int tiles = ((M + kGBM - 1) / kGBM) * ((N + kGBN - 1) / kGBN);
+  proj_gemm_bf16<<<tiles < sms ? tiles : sms, kGemmThreads, kGemmSmem, s>>>(
+      map_a, map_b, (__nv_bfloat16*)u, M, N, K);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// Scans: one thread per (b, h) lane, u laid out (T, B, 4H) as
+// Forward scan: one thread per (b, h) lane, u laid out (T, B, 4H) as
 // [x~ | f | r | x'] blocks, h / c / gh laid out (T, B, H).
 // ---------------------------------------------------------------------------
 
@@ -313,79 +559,338 @@ sru_fwd_scan_kernel(const T* __restrict__ u, const float* __restrict__ bias4,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kScanThreads)
+// ---------------------------------------------------------------------------
+// Backward scan, time-chunked
+//
+// What bounds it: bytes (u, c, gh in; du out), but only with enough loads in
+// flight: Little's law asks for some 25 KB in flight per SM at 3.35 TB/s,
+// and one thread per lane walking all of T (10,240 threads at the step's
+// shape, ~2.4 warps per SM) keeps a few KB there.  The design multiplies the
+// threads by splitting T:
+//
+//   * ghat is affine in its carry.  For a run of steps starting at s0 (in
+//     the backward's traversal order s, step s visiting time t(s)),
+//     ghat_s = loc_s + P_s * carry_in, where loc is the run's scan from a
+//     zero carry, P_s the product of fm over the run's earlier steps, and
+//     carry_in = fm_{s0-1} * ghat_{s0-1}.  A run's summary (E, F) =
+//     (fm_last * loc_last, product of its fm) maps carry_in to the next
+//     run's: carry_out = E + F * carry_in.
+//   * A block (128 threads) owns kPairs * V consecutive h of one b, V = 2
+//     lanes a thread (bf16x2 / float2 loads and stores) when H is even, else
+//     1.  It walks T in windows of kWindow = 64 steps; in a window, thread
+//     row p (of kChunks = 16) takes the kSub = 4 steps starting at
+//     window + 4p.
+//   * Pass 1: each thread issues the loads of its 4 steps together (u's
+//     four blocks, c for the 4 steps and the next one, which is c_{t-1} of
+//     the last, gh), forms a, fm, loc and P, writes du_r and du_x', which do
+//     not depend on ghat, and keeps loc, P and the two coefficients of du_x~
+//     and du_f in registers (32 of them at V = 2): nothing is read twice.
+//     Runs of padded frames only (t >= len; a quarter of the step's
+//     frames) are not read, only their zero du written.
+//   * The 16 summaries go to shared memory; one thread row folds them
+//     serially (16 steps, not 64) from the previous window's carry, writes
+//     each run's carry_in back, and carries the window's end on.
+//   * Pass 2: ghat = loc + P * carry_in, du_x~ and du_f, all independent.
+//   * The f/r bias gradient: each thread sums its steps; the block sums its
+//     16 rows in a fixed order and writes the (b, h) partial; the last block
+//     of an h group to finish (a ticket counter, reset by that block) sums
+//     the B partials in order of b and writes db = [0 | dbf | dbr | 0].
+//     Deterministic: the ticket only picks which block sums.  The tickets
+//     live in this library, so two launches of this kernel must not run
+//     concurrently on different streams.
+//
+// Rounding: the recurrence is reassociated (chunk scans joined through
+// their carries), so ghat differs from the plain version's step-by-step
+// sum by f32 rounding; the bias gradient is summed over 4-step runs, then
+// 16 rows, then windows, then b, where the plain version sums over T, then
+// B.  bf16 outputs are rounded once, to nearest even.
+// ---------------------------------------------------------------------------
+
+constexpr int kChunks = 16, kSub = 4, kPairs = 8;
+constexpr int kBwdThreads = kChunks * kPairs;
+constexpr int kWindow = kChunks * kSub;
+constexpr int kMaxGroups = 4096;
+
+__device__ unsigned int g_bwd_tickets[kMaxGroups];
+
+template <int V>
+__device__ __forceinline__ void load_lanes(const float* p, float (&o)[V]) {
+  if constexpr (V == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    o[0] = v.x;
+    o[1] = v.y;
+  } else {
+    o[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_lanes(const __nv_bfloat16* p,
+                                           float (&o)[V]) {
+  if constexpr (V == 2) {
+    const float2 v =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    o[0] = v.x;
+    o[1] = v.y;
+  } else {
+    o[0] = __bfloat162float(*p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_lanes(float* p, const float (&v)[V]) {
+  if constexpr (V == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else
+    *p = v[0];
+}
+
+template <int V>
+__device__ __forceinline__ void store_lanes(__nv_bfloat16* p,
+                                            const float (&v)[V]) {
+  if constexpr (V == 2)
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+  else
+    *p = __float2bfloat16(v[0]);
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdThreads)
 sru_bwd_scan_kernel(const T* __restrict__ u, const float* __restrict__ bias4,
                     const int* __restrict__ lengths,
                     const float* __restrict__ c, const T* __restrict__ gh,
-                    T* __restrict__ du, float* __restrict__ dbp, int nt, int B,
-                    int H, int reverse, int use_relu) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B * H) return;
-  const int b = lane / H, j = lane - b * H;
-  const float bf = bias4[H + j], br = bias4[2 * H + j];
+                    T* __restrict__ du, float* __restrict__ dbp,
+                    float* __restrict__ db, int nt, int B, int H, int reverse,
+                    int use_relu) {
+  constexpr int kLanes = kPairs * V;
+  __shared__ float s_e[kChunks][kLanes], s_f[kChunks][kLanes];
+  __shared__ float s_db[2][kChunks][kLanes];
+  __shared__ int s_last;
+  const int groups = (H + kLanes - 1) / kLanes;
+  const int b = blockIdx.x / groups, grp = blockIdx.x % groups;
+  const int q = threadIdx.x % kPairs, p = threadIdx.x / kPairs;
+  const int h = grp * kLanes + q * V;
+  const bool live = h < H;
+  const int hc = live ? h : 0;  // dead lanes load lane 0 and store nothing
+  float bf[V], br[V];
+  load_lanes<V>(bias4 + H + hc, bf);
+  load_lanes<V>(bias4 + 2 * H + hc, br);
   const int len = lengths[b];
   const size_t us = (size_t)B * 4 * H, hs = (size_t)B * H;
-  const T* ub = u + (size_t)b * 4 * H + j;
-  T* dub = du + (size_t)b * 4 * H + j;
-  const float* cb = c + (size_t)b * H + j;
-  const T* gb = gh + (size_t)b * H + j;
+  const T* ub = u + (size_t)b * 4 * H + hc;
+  T* dub = du + (size_t)b * 4 * H + hc;
+  const float* cb = c + (size_t)b * H + hc;
+  const T* gb = gh + (size_t)b * H + hc;
+  // time of traversal step s (clamped into range): the backward walks
+  // opposite to the forward, whose previous step of t(s) is t(s + 1)
+  auto time_of = [&](int s) {
+    s = s < nt ? s : nt - 1;
+    return reverse ? s : nt - 1 - s;
+  };
 
-  float ghat = 0.f, fm_next = 0.f, dbf = 0.f, dbr = 0.f;
-  // Traverse opposite to the forward pass; the forward's previous step of
-  // time t is tp = t - 1 (forward layer) or t + 1 (reversed layer).
-  for (int s0 = 0; s0 < nt; s0 += kUnroll) {
-    float xt[kUnroll], uf[kUnroll], ur[kUnroll], xp[kUnroll];
-    float ct[kUnroll], cp[kUnroll], g_h[kUnroll];
+  float carry[V], dbf[V], dbr[V];
 #pragma unroll
-    for (int i = 0; i < kUnroll; ++i) {
-      const int s = s0 + i;
-      if (s < nt) {
-        const int t = reverse ? s : nt - 1 - s;
-        const int tp = reverse ? t + 1 : t - 1;
-        const T* ut = ub + (size_t)t * us;
-        xt[i] = to_f32(ut[0]);
-        uf[i] = to_f32(ut[H]);
-        ur[i] = to_f32(ut[2 * H]);
-        xp[i] = to_f32(ut[3 * H]);
-        ct[i] = cb[(size_t)t * hs];
-        cp[i] = (tp >= 0 && tp < nt) ? cb[(size_t)tp * hs] : 0.f;
-        g_h[i] = to_f32(gb[(size_t)t * hs]);
+  for (int i = 0; i < V; ++i) carry[i] = dbf[i] = dbr[i] = 0.f;
+
+  for (int w0 = 0; w0 < nt; w0 += kWindow) {
+    const int s0 = w0 + p * kSub;
+    // Padded frames (t >= len) contribute nothing.  They lie at one end of
+    // T, so a run is mostly all padding (its loads are skipped) or all
+    // valid; one branch around all of a run's loads keeps them issued
+    // together.
+    bool valid[kSub], any = false;
+#pragma unroll
+    for (int k = 0; k < kSub; ++k) {
+      valid[k] = s0 + k < nt && time_of(s0 + k) < len;
+      any = any || valid[k];
+    }
+    float xt[kSub][V], uf[kSub][V], ur[kSub][V], xp[kSub][V], g_h[kSub][V];
+    float ct[kSub + 1][V];
+    if (any) {
+#pragma unroll
+      for (int k = 0; k < kSub; ++k) {
+        const size_t t = time_of(s0 + k);
+        const T* ut = ub + t * us;
+        load_lanes<V>(ut, xt[k]);
+        load_lanes<V>(ut + H, uf[k]);
+        load_lanes<V>(ut + 2 * H, ur[k]);
+        load_lanes<V>(ut + 3 * H, xp[k]);
+        load_lanes<V>(cb + t * hs, ct[k]);
+        load_lanes<V>(gb + t * hs, g_h[k]);
+      }
+      load_lanes<V>(cb + (size_t)time_of(s0 + kSub) * hs, ct[kSub]);
+    } else {
+#pragma unroll
+      for (int k = 0; k <= kSub; ++k)
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          ct[k][i] = 0.f;
+          if (k < kSub)
+            xt[k][i] = uf[k][i] = ur[k][i] = xp[k][i] = g_h[k][i] = 0.f;
+        }
+    }
+
+    // pass 1
+    float loc[kSub][V], pr[kSub][V], al[kSub][V], be[kSub][V];
+    float l[V], fmp[V], pp[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      l[i] = 0.f;
+      fmp[i] = 0.f;
+      pp[i] = 1.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kSub; ++k) {
+      const int s = s0 + k;
+      const int t = time_of(s);
+      const float m = valid[k] ? 1.f : 0.f;
+      const bool has_prev = s + 1 < nt;
+      float du_r[V], du_xp[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float f = sigmoidf(uf[k][i] + bf[i]);
+        const float r = sigmoidf(ur[k][i] + br[i]);
+        const float cv = ct[k][i];
+        float g, gp;
+        if (use_relu) {
+          g = fmaxf(cv, 0.f);
+          gp = cv > 0.f ? 1.f : 0.f;
+        } else {
+          g = tanhf(cv);
+          gp = 1.f - g * g;
+        }
+        const float a = g_h[k][i] * m * r * gp;
+        l[i] = a + fmp[i] * l[i];
+        loc[k][i] = l[i];
+        pr[k][i] = pp[i];
+        const float fm = f * m + (1.f - m);
+        fmp[i] = fm;
+        pp[i] *= fm;
+        const float cp = has_prev ? ct[k + 1][i] : 0.f;
+        al[k][i] = (1.f - f) * m;
+        be[k][i] = m * (cp - xt[k][i]) * f * (1.f - f);
+        du_r[i] = g_h[k][i] * m * (g - xp[k][i]) * r * (1.f - r);
+        du_xp[i] = g_h[k][i] * (1.f - r) * m;
+        dbr[i] += du_r[i];
+      }
+      if (live && s < nt) {
+        T* dut = dub + (size_t)t * us;
+        store_lanes<V>(dut + 2 * H, du_r);
+        store_lanes<V>(dut + 3 * H, du_xp);
       }
     }
 #pragma unroll
-    for (int i = 0; i < kUnroll; ++i) {
-      const int s = s0 + i;
-      if (s < nt) {
-        const int t = reverse ? s : nt - 1 - s;
-        const float m = t < len ? 1.f : 0.f;
-        const float f = sigmoidf(uf[i] + bf);
-        const float r = sigmoidf(ur[i] + br);
-        float g, gp;
-        if (use_relu) {
-          g = fmaxf(ct[i], 0.f);
-          gp = ct[i] > 0.f ? 1.f : 0.f;
-        } else {
-          g = tanhf(ct[i]);
-          gp = 1.f - g * g;
+    for (int i = 0; i < V; ++i) {
+      s_e[p][q * V + i] = fmp[i] * l[i];
+      s_f[p][q * V + i] = pp[i];
+    }
+    __syncthreads();
+    if (p == 0) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        float e[kChunks], f[kChunks];
+#pragma unroll
+        for (int j = 0; j < kChunks; ++j) {
+          e[j] = s_e[j][q * V + i];
+          f[j] = s_f[j][q * V + i];
         }
-        const float a = g_h[i] * m * r * gp;
-        ghat = a + fm_next * ghat;
-        fm_next = f * m + (1.f - m);
-        const float du_f = m * ghat * (cp[i] - xt[i]) * f * (1.f - f);
-        const float du_r = g_h[i] * m * (g - xp[i]) * r * (1.f - r);
-        T* dut = dub + (size_t)t * us;
-        dut[0] = from_f32<T>(ghat * (1.f - f) * m);
-        dut[H] = from_f32<T>(du_f);
-        dut[2 * H] = from_f32<T>(du_r);
-        dut[3 * H] = from_f32<T>(g_h[i] * (1.f - r) * m);
-        dbf += du_f;
-        dbr += du_r;
+        float cr = carry[i];
+#pragma unroll
+        for (int j = 0; j < kChunks; ++j) {
+          s_e[j][q * V + i] = cr;  // run j's carry_in
+          cr = e[j] + f[j] * cr;
+        }
+        carry[i] = cr;
+      }
+    }
+    __syncthreads();
+
+    // pass 2
+    float cin[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) cin[i] = s_e[p][q * V + i];
+#pragma unroll
+    for (int k = 0; k < kSub; ++k) {
+      const int s = s0 + k;
+      float du_x[V], du_f[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float ghat = loc[k][i] + pr[k][i] * cin[i];
+        du_x[i] = ghat * al[k][i];
+        du_f[i] = ghat * be[k][i];
+        dbf[i] += du_f[i];
+      }
+      if (live && s < nt) {
+        T* dut = dub + (size_t)time_of(s) * us;
+        store_lanes<V>(dut, du_x);
+        store_lanes<V>(dut + H, du_f);
       }
     }
   }
-  dbp[(size_t)b * 2 * H + j] = dbf;
-  dbp[(size_t)b * 2 * H + H + j] = dbr;
+
+  // the bias gradient: this block's rows, then (last block) all of B
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    s_db[0][p][q * V + i] = dbf[i];
+    s_db[1][p][q * V + i] = dbr[i];
+  }
+  __syncthreads();
+  if (p == 0 && live) {
+    float sf[V], sr[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      sf[i] = sr[i] = 0.f;
+      for (int j = 0; j < kChunks; ++j) {
+        sf[i] += s_db[0][j][q * V + i];
+        sr[i] += s_db[1][j][q * V + i];
+      }
+    }
+    store_lanes<V>(dbp + (size_t)b * 2 * H + h, sf);
+    store_lanes<V>(dbp + (size_t)b * 2 * H + H + h, sr);
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(&g_bwd_tickets[grp], 1u) == (unsigned)(B - 1);
+  __syncthreads();
+  if (!s_last) return;
+  if (threadIdx.x == 0) g_bwd_tickets[grp] = 0;
+  if (p == 0 && live) {
+    __threadfence();
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      float sf = 0.f, sr = 0.f;
+      for (int bb = 0; bb < B; ++bb) {
+        sf += __ldcg(dbp + (size_t)bb * 2 * H + h + i);
+        sr += __ldcg(dbp + (size_t)bb * 2 * H + H + h + i);
+      }
+      db[h + i] = 0.f;
+      db[H + h + i] = sf;
+      db[2 * H + h + i] = sr;
+      db[3 * H + h + i] = 0.f;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd_scan(const void* u, const float* bias4,
+                            const int* lengths, const float* c, const void* gh,
+                            void* du, float* dbp, float* db, int nt, int B,
+                            int H, int reverse, int use_relu, cudaStream_t s) {
+  const int V = H % 2 == 0 ? 2 : 1;
+  const int groups = (H + kPairs * V - 1) / (kPairs * V);
+  if (groups > kMaxGroups) return cudaErrorInvalidValue;
+  if (B == 0 || H == 0) return cudaSuccess;
+  const dim3 grid((unsigned)(B * groups));
+  if (V == 2)
+    sru_bwd_scan_kernel<T, 2><<<grid, kBwdThreads, 0, s>>>(
+        (const T*)u, bias4, lengths, c, (const T*)gh, (T*)du, dbp, db, nt, B,
+        H, reverse, use_relu);
+  else
+    sru_bwd_scan_kernel<T, 1><<<grid, kBwdThreads, 0, s>>>(
+        (const T*)u, bias4, lengths, c, (const T*)gh, (T*)du, dbp, db, nt, B,
+        H, reverse, use_relu);
+  return cudaGetLastError();
 }
 
 inline dim3 scan_grid(int B, int H) {
@@ -400,24 +905,16 @@ const char* sru_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// x: (M, K) with rows ldx elements apart (bf16; f32 takes ldx == K).
 int sru_proj_gemm(const void* x, const void* w, void* u, int M, int N, int K,
-                  int bf16, void* stream) {
+                  int ldx, int bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) return (int)launch_proj_gemm_bf16(x, w, u, M, N, K, ldx, s);
+  if (ldx != K) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((N + kTile - 1) / kTile),
                   (unsigned)((M + kTile - 1) / kTile));
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    const dim3 tiles((unsigned)((N + kBN - 1) / kBN),
-                     (unsigned)((M + kBM - 1) / kBM));
-    if (K % 8 != 0 || N % 8 != 0 || (uintptr_t)x % 16 != 0 ||
-        (uintptr_t)w % 16 != 0)
-      return (int)cudaErrorInvalidValue;
-    proj_gemm_bf16<<<tiles, kGemmThreads, 0, s>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (__nv_bfloat16*)u,
-        M, N, K);
-  } else {
-    proj_gemm_f32<<<grid, 256, 0, s>>>((const float*)x, (const float*)w,
-                                       (float*)u, M, N, K);
-  }
+  proj_gemm_f32<<<grid, 256, 0, s>>>((const float*)x, (const float*)w,
+                                     (float*)u, M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -437,21 +934,18 @@ int sru_fwd_scan(const void* u, const float* bias4, const int* lengths,
   return (int)cudaGetLastError();
 }
 
+// dbp: (B, 2H) float32 scratch for the per-b partials; db: (4H,) float32.
 int sru_bwd_scan(const void* u, const float* bias4, const int* lengths,
-                 const float* c, const void* gh, void* du, float* dbp, int T,
-                 int B, int H, int reverse, int use_relu, int bf16,
-                 void* stream) {
+                 const float* c, const void* gh, void* du, float* dbp,
+                 float* db, int T, int B, int H, int reverse, int use_relu,
+                 int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    sru_bwd_scan_kernel<__nv_bfloat16><<<scan_grid(B, H), kScanThreads, 0, s>>>(
-        (const __nv_bfloat16*)u, bias4, lengths, c, (const __nv_bfloat16*)gh,
-        (__nv_bfloat16*)du, dbp, T, B, H, reverse, use_relu);
-  } else {
-    sru_bwd_scan_kernel<float><<<scan_grid(B, H), kScanThreads, 0, s>>>(
-        (const float*)u, bias4, lengths, c, (const float*)gh, (float*)du, dbp,
-        T, B, H, reverse, use_relu);
-  }
-  return (int)cudaGetLastError();
+  return (int)(bf16 ? launch_bwd_scan<__nv_bfloat16>(
+                          u, bias4, lengths, c, gh, du, dbp, db, T, B, H,
+                          reverse, use_relu, s)
+                    : launch_bwd_scan<float>(u, bias4, lengths, c, gh, du,
+                                             dbp, db, T, B, H, reverse,
+                                             use_relu, s));
 }
 
 }  // extern "C"

@@ -2,16 +2,21 @@
 plain PyTorch versions, and the autograd Functions around them.
 
 Counterpart of gantts_tpu/kernels/sru_scan.py.  Three kernels, built from
-``csrc/sru_scan.cu`` at first use (see that file's note for what bounds each
-one on the card and what its design does about it):
+``csrc/sru_scan.cu`` at first use (that file's notes say what bounds each one
+on the card, what its design does about it, and how it rounds):
 
   ``sru_proj_gemm``  u = x @ W, f32 accumulation, u in the I/O dtype
-                     (replaces ``_proj_u`` of ``_psru_fwd_kernel``);
+                     (replaces ``_proj_u`` of ``_psru_fwd_kernel``).  bf16 is
+                     a wgmma kernel fed by TMA; f32 a tiled FMA kernel;
   ``sru_fwd_scan``   gates, length mask, recurrence and highway output from u
                      (replaces the scan of ``_psru_fwd_kernel`` and all of
                      ``_fused_fwd_kernel``);
   ``sru_bwd_scan``   the adjoint recurrence, du and the f/r bias gradient
-                     (replaces ``_fused_bwd_kernel``).
+                     (replaces ``_fused_bwd_kernel``): T is split into runs
+                     whose scans are joined through their carries, so the
+                     kernel sums in another order than the plain version
+                     (f32 rounding apart), and it writes the whole (4H,)
+                     bias gradient itself.
 
 Each wrapper takes the plain version when, and only when, its tensors lie on
 the CPU.  A CUDA tensor goes to the kernel; anything the kernel does not take
@@ -145,9 +150,10 @@ def _lib():
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.sru_error_string.argtypes = [I]
     lib.sru_error_string.restype = ctypes.c_char_p
-    lib.sru_proj_gemm.argtypes = [P, P, P, I, I, I, I, P]
+    lib.sru_proj_gemm.argtypes = [P, P, P, I, I, I, I, I, P]
     lib.sru_fwd_scan.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
-    lib.sru_bwd_scan.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
+    lib.sru_bwd_scan.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                 P]
     for fn in (lib.sru_proj_gemm, lib.sru_fwd_scan, lib.sru_bwd_scan):
         fn.restype = I
     return lib
@@ -183,10 +189,12 @@ def _stream(device):
 def sru_proj_gemm(x2, w):
     """u = x2 @ w: (M, K) x (K, N) -> (M, N) in x2's dtype, f32 accumulation.
 
-    The bf16 kernel loads 8 elements (16 bytes) at a time, so it takes K and
-    N in multiples of 8 and 16-byte aligned operands.  Anything else is
-    zero-padded into fresh allocations here (the first layer's K=425 to
-    432): the padding adds only zero products."""
+    The bf16 kernel reads both operands with TMA, which takes row strides
+    and bases in multiples of 16 bytes and reads what lies past an edge as
+    zero.  A K that is not a multiple of 8 (the first layer's 425) makes
+    only x's rows too narrow: x is copied into rows 8-aligned apart and w
+    read as it is.  An N that is not a multiple of 8, or a misaligned w, is
+    zero-padded into a fresh w, and u sliced back to N columns."""
     if _on_cpu(x2, w):
         return sru_proj_gemm_plain(x2, w)
     name, dev = "sru_proj_gemm", x2.device
@@ -194,16 +202,17 @@ def sru_proj_gemm(x2, w):
     N = w.shape[1]
     _require(name, x2, "x", dev, IO_DTYPES, (M, K))
     _require(name, w, "w", dev, (x2.dtype,), (K, N))
-    Np = N
+    Np, ldx = N, K
     if x2.dtype == torch.bfloat16:
-        pad_k, Np = -K % 8, N + -N % 8
-        if pad_k or Np != N or x2.data_ptr() % 16 or w.data_ptr() % 16:
-            x2 = F.pad(x2, (0, pad_k))
-            w = F.pad(w, (0, Np - N, 0, pad_k))
-            K += pad_k
+        Np, ldx = N + -N % 8, K + -K % 8
+        if ldx != K or x2.data_ptr() % 16:
+            xp = torch.empty((M, ldx), dtype=x2.dtype, device=dev)
+            x2 = xp[:, :K].copy_(x2)  # its row stride is ldx
+        if Np != N or w.data_ptr() % 16:
+            w = F.pad(w, (0, Np - N))
     u = torch.empty((M, Np), dtype=x2.dtype, device=dev)
     _launched(name, _lib().sru_proj_gemm(
-        x2.data_ptr(), w.data_ptr(), u.data_ptr(), M, Np, K,
+        x2.data_ptr(), w.data_ptr(), u.data_ptr(), M, Np, K, ldx,
         int(x2.dtype == torch.bfloat16), _stream(dev)))
     return u if Np == N else u[:, :N].contiguous()
 
@@ -229,7 +238,9 @@ def sru_fwd_scan(u, bias4, lengths, reverse, use_relu):
 
 def sru_bwd_scan(u, bias4, lengths, c, gh, reverse, use_relu):
     """-> (du in u's dtype (T, B, 4H), db float32 (4H,)).  ``gh`` is the
-    cotangent of h in u's dtype; ``reverse`` is the forward layer's."""
+    cotangent of h in u's dtype; ``reverse`` is the forward layer's.  The
+    kernel joins the per-b bias gradients through counters of its own, so
+    two of its launches must not overlap on different streams."""
     if _on_cpu(u, bias4, lengths, c, gh):
         return sru_bwd_scan_plain(u, bias4, lengths, c, gh, reverse,
                                   use_relu)
@@ -242,14 +253,14 @@ def sru_bwd_scan(u, bias4, lengths, c, gh, reverse, use_relu):
     _require(name, c, "c", dev, (torch.float32,), (T, B, H))
     _require(name, gh, "gh", dev, (u.dtype,), (T, B, H))
     du = torch.empty((T, B, 4 * H), dtype=u.dtype, device=dev)
-    dbp = torch.empty((B, 2 * H), dtype=torch.float32, device=dev)
+    db = torch.empty(4 * H, dtype=torch.float32, device=dev)
+    dbp = torch.empty((B, 2 * H), dtype=torch.float32, device=dev)  # scratch
     _launched(name, _lib().sru_bwd_scan(
         u.data_ptr(), bias4.data_ptr(), lengths.data_ptr(), c.data_ptr(),
-        gh.data_ptr(), du.data_ptr(), dbp.data_ptr(), T, B, H,
+        gh.data_ptr(), du.data_ptr(), dbp.data_ptr(), db.data_ptr(), T, B, H,
         int(bool(reverse)), int(bool(use_relu)),
         int(u.dtype == torch.bfloat16), _stream(dev)))
-    z = torch.zeros(H, dtype=torch.float32, device=dev)
-    return du, torch.cat([z, dbp.sum(0), z])  # [0 | dbf | dbr | 0]
+    return du, db
 
 
 # ---------------------------------------------------------------------------

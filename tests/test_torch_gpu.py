@@ -6,13 +6,15 @@ there, skip this directory's conftest (which configures JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-Shapes are ragged on purpose: T=37 is not a multiple of the scans' unroll,
-B*H=240 lanes do not fill their last block, D is not a multiple of the
-GEMM's K tile (the bf16 wrapper zero-pads D=70 to 72 for the kernel's
-16-byte loads; D=64 goes in as it is), and T*B=185 rows do not fill their
-last row tile.  Limits
-are those of chip_smoke.py: max|kernel - plain| / max(max|plain|, 1) under
-1e-4 in float32 and 1e-2 in bfloat16 (one bf16 rounding of an output).
+Shapes are ragged on purpose: T=37 is not a multiple of the scans' unroll
+or of the backward scan's 4-step runs and is shorter than its 64-step
+window, B*H=240 lanes do not fill their last block, D is not a multiple of
+the GEMM's K tile (the bf16 wrapper copies x with D=70 into rows 72 apart
+for the TMA loads' 16-byte strides; D=64 goes in as it is), and T*B=185
+rows do not fill their last 128-row tile.  Limits are those of
+chip_smoke.py: max|kernel - plain| / max(max|plain|, 1) under 1e-4 in
+float32 and 1e-2 in bfloat16 (one bf16 rounding of an output); the f32
+bias gradient under 1e-4.
 """
 
 import numpy as np
@@ -123,13 +125,18 @@ def test_srurnn_step_launches_every_kernel(cuda):
                                      "linear_recurrence_bwd": 0}
 
 
-@pytest.mark.parametrize("K_, N_", [(425, 2048), (70, 180), (64, 192)])
-def test_proj_gemm_pads_what_its_loads_cannot_take(cuda, K_, N_):
-    """bf16 GEMM: a K or N that is not a multiple of 8, or an operand that
-    is not 16-byte aligned (a view one element in), is zero-padded by the
-    wrapper into fresh allocations; u keeps its (M, N) shape."""
+@pytest.mark.parametrize("K_, N_", [(425, 2048), (70, 180), (64, 192),
+                                    (432, 4096), (1024, 4096), (1024, 2048)])
+@pytest.mark.parametrize("M", [T * B, 10240 + 37])
+def test_proj_gemm_pads_what_its_loads_cannot_take(cuda, K_, N_, M):
+    """bf16 GEMM: a K that is not a multiple of 8 or an x that is not
+    16-byte aligned (a view one element in) makes the wrapper copy x into
+    rows 8-aligned apart, an N that is not a multiple of 8 makes it pad w;
+    u keeps its (M, N) shape.  Neither M
+    fills its last 128-row tile; the larger gives each of the persistent
+    blocks several tiles, at the paths' widths (N = 4H, and 8H for both
+    LSTM directions; K = 432, the first layer's 425 padded, and 2H)."""
     rs = np.random.RandomState(2)
-    M = T * B
     x = torch.tensor(rs.randn(M, K_ + 1), dtype=torch.bfloat16, device=cuda)
     w = torch.tensor(rs.randn(K_, N_) * 0.1, dtype=torch.bfloat16,
                      device=cuda)
@@ -138,6 +145,63 @@ def test_proj_gemm_pads_what_its_loads_cannot_take(cuda, K_, N_):
         u = K.sru_proj_gemm(x2, w)
         assert u.shape == (M, N_) and u.is_contiguous()
         assert _rel(u, K.sru_proj_gemm_plain(x2, w)) < TOL[torch.bfloat16]
+
+
+def _bwd_inputs(dev, dt, Tn, Bn, Hn, seed=6):
+    """u, bias4, c (from the plain forward) and gh; lengths [1, T, then
+    values that end inside a 4-step run and a 64-step window]."""
+    rs = np.random.RandomState(seed)
+    u = torch.tensor(rs.randn(Tn, Bn, 4 * Hn), dtype=dt, device=dev)
+    bias4 = torch.tensor(np.r_[np.zeros(Hn), rs.randn(2 * Hn) * 0.1,
+                               np.zeros(Hn)], dtype=torch.float32, device=dev)
+    lengths = np.minimum(np.r_[1, Tn, rs.randint(1, Tn + 1, Bn)[:Bn - 2]],
+                         Tn)[:Bn]
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    gh = torch.tensor(rs.randn(Tn, Bn, Hn), dtype=dt, device=dev)
+    return u, bias4, lengths, gh
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("use_relu", [0, 1])
+@pytest.mark.parametrize("Tn,Bn,Hn", [(1, 3, 48), (3, 4, 50), (69, 3, 9),
+                                      (130, 2, 50), (200, 5, 48)])
+def test_bwd_scan_across_runs_and_windows(cuda, dt, reverse, use_relu, Tn,
+                                          Bn, Hn):
+    """The time-chunked backward scan against its plain version: T of one
+    step, shorter than one 4-step run, not a multiple of the run or of the
+    64-step window, and spanning several windows; lengths of 1 and ending
+    inside a run; H odd (one lane a thread), and even but not a multiple of
+    a block's 16 lanes; B of 2 to 5 partial bias gradients to join."""
+    u, bias4, lengths, gh = _bwd_inputs(cuda, dt, Tn, Bn, Hn)
+    _, c = K.sru_fwd_scan_plain(u, bias4, lengths, reverse, use_relu)
+    K.reset_launch_counts()
+    du_k, db_k = K.sru_bwd_scan(u, bias4, lengths, c, gh, reverse, use_relu)
+    du_p, db_p = K.sru_bwd_scan_plain(u, bias4, lengths, c, gh, reverse,
+                                      use_relu)
+    torch.cuda.synchronize()
+    assert du_k.dtype == dt and du_k.shape == (Tn, Bn, 4 * Hn)
+    assert db_k.dtype == torch.float32 and db_k.shape == (4 * Hn,)
+    assert _rel(du_k, du_p) < TOL[dt] and _rel(db_k, db_p) < 1e-4
+    assert (db_k[:Hn] == 0).all() and (db_k[3 * Hn:] == 0).all()
+    pad = torch.arange(Tn, device=cuda)[:, None] >= lengths[None, :]
+    assert (du_k[pad] == 0).all()
+    assert K.launch_counts["sru_bwd_scan"] == 1
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_bwd_scan_at_the_step_shape(cuda, dt, reverse):
+    """T=512 (eight 64-step windows), B=20, H=512, as the training step
+    calls it; and the same inputs again, so that a second launch finds the
+    kernel's bias-gradient tickets as the first left them."""
+    u, bias4, lengths, gh = _bwd_inputs(cuda, dt, 512, 20, 512)
+    _, c = K.sru_fwd_scan_plain(u, bias4, lengths, reverse, 1)
+    du_p, db_p = K.sru_bwd_scan_plain(u, bias4, lengths, c, gh, reverse, 1)
+    for _ in range(2):
+        du_k, db_k = K.sru_bwd_scan(u, bias4, lengths, c, gh, reverse, 1)
+        torch.cuda.synchronize()
+        assert _rel(du_k, du_p) < TOL[dt] and _rel(db_k, db_p) < 1e-4
 
 
 # ---------------------------------------------------------------------------
