@@ -19,7 +19,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      lengths; the bf16 GEMM also at the LSTM path's N = 8H), and time both,
      beside the library call that computes the same function where there
      is one (cuBLAS for the GEMM, at every (K, N) the main paths give it; a
-     cuDNN bidirectional LSTM layer for the LSTM scans);
+     cuDNN bidirectional LSTM layer for the LSTM scans); the LSTM
+     backward's launches print the design they took (bf16 must take the
+     thread-block-cluster kernel, f32 the cooperative one), beside how
+     many of its clusters can be resident at once;
   4. the main paths, each with its launch counters set to 0 just before
      and checked just after, and every plain version refused while it
      runs: full-width tts_acoustic GAN training steps (MLP discriminator,
@@ -112,6 +115,7 @@ POST_UPDATE = ("loss_adv", "generator")
 # two should agree exactly; limit 1e-6 of scale.
 LINEAR_TOL = 1e-6
 STEPS, WARMUP = 5, 2  # phase 4: timed steps, after untimed warm-up steps
+SLEEP_CYCLES = 10_000_000  # time_ms's head start, about 5 ms at 1.98 GHz
 PROFILE_STEPS = 5     # phase 4's traced steps, after the timed ones
 
 
@@ -126,11 +130,18 @@ def rel_err(a, b):
 
 
 def time_ms(fn, reps, warmup=3):
+    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events.  The
+    calls are queued behind a device-side sleep of about 5 ms, so that the
+    host time of a wrapper (its checks, allocations and the ctypes call)
+    overlaps the device work instead of adding gaps between short kernels;
+    a call that needs more host time than its device work (the plain
+    versions) still shows its host time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -445,6 +456,10 @@ def phase_lstm_kernels(dev, card, errs):
     def randn(*shape, dt):
         return torch.randn(shape, generator=gen, device=dev).to(dt)
 
+    for h in (256, H):
+        print(f"[3] lstm_bwd_scan cluster kernel at H={h}: "
+              f"{L.bwd_cluster_occupancy(h)} clusters of 16 blocks "
+              f"can be resident at once (one per direction)  [{card}]")
     for dt in (torch.float32, torch.bfloat16):
         tol, tol_state = LSTM_TOL[dt], LSTM_TOL_STATE[dt]
         for reverse in ((False, True), (False,), (True,)):
@@ -460,6 +475,8 @@ def phase_lstm_kernels(dev, card, errs):
             dxp_p, db_p = L.lstm_bwd_scan_plain(whh, lengths, c_p, g4_p, gy,
                                                 reverse)
             tag = "".join("r" if r else "f" for r in reverse)
+            require_bwd_design(L, "cluster" if dt == torch.bfloat16
+                               else "cooperative", dt, f"{str(dt)[6:]} {tag}")
             for kernel, what, got, ref, lim in (
                     ("lstm_fwd_scan", "y", y_k, y_p, tol),
                     ("lstm_fwd_scan", "c", c_k, c_p, tol_state),
@@ -516,9 +533,11 @@ def phase_lstm_kernels(dev, card, errs):
                     10),
             time_ms(lambda: L.lstm_bwd_scan_plain(whh, lengths, c, g4, gy,
                                                   rev), 1, warmup=1))}
+    require_bwd_design(L, "cluster", torch.bfloat16, "timed, two directions")
     for kernel, (ms, plain_ms) in times.items():
         print(f"[3] time {kernel:13s} bfloat16 two directions "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  [{card}]")
+              f"kernel {ms:.4f} ms ({ms * 1e3 / T:.2f} us per recurrence "
+              f"step)  plain {plain_ms:.4f} ms  [{card}]")
     cudnn = time_cudnn_lstm(dev, card, gen, lengths, (False, True))
     # Bounds, per direction: xp, c, g4 and gy are needed on valid frames
     # only; the recurrent product is 2 * H * 4H operations per valid frame,
@@ -546,10 +565,13 @@ def phase_lstm_kernels(dev, card, errs):
         time_ms(lambda: L.lstm_bwd_scan_plain(whh1, lengths, c1, g41, gy1,
                                               one), 1, warmup=1),
         bwd_bytes, ops, torch.bfloat16)
+    require_bwd_design(L, "cluster", torch.bfloat16, "timed, one direction")
     print(f"[3] time lstm scans bfloat16 one direction: forward kernel "
-          f"{one_fwd['ms']:.4f} ms, plain {one_fwd['plain_ms']:.4f} ms "
+          f"{one_fwd['ms']:.4f} ms ({one_fwd['ms'] * 1e3 / T:.2f} us per "
+          f"step), plain {one_fwd['plain_ms']:.4f} ms "
           f"(bound {one_fwd['bound_ms']:.4f}); backward kernel "
-          f"{one_bwd['ms']:.4f} ms, plain {one_bwd['plain_ms']:.4f} ms "
+          f"{one_bwd['ms']:.4f} ms ({one_bwd['ms'] * 1e3 / T:.2f} us per "
+          f"step), plain {one_bwd['plain_ms']:.4f} ms "
           f"(bound {one_bwd['bound_ms']:.4f})  [{card}]")
     time_cudnn_lstm(dev, card, gen, lengths, one)
     return {
@@ -559,6 +581,17 @@ def phase_lstm_kernels(dev, card, errs):
                                 2 * ops, torch.bfloat16,
                                 cudnn["fwd+bwd"] - cudnn["fwd"]),
     }
+
+
+def require_bwd_design(L, want, dt, what):
+    """Print the design lstm_bwd_scan's launcher takes at the step's shape
+    (B, H) in ``dt``; fail unless it is ``want``: the training steps' bf16
+    shapes must take the cluster kernel, f32 the cooperative one."""
+    took = L.bwd_design(B, H, dt)
+    print(f"[3] lstm_bwd_scan {what}: {took} kernel")
+    if took != want:
+        fail(f"lstm_bwd_scan ({what}) takes the {took} kernel, expected the "
+             f"{want} one")
 
 
 def time_cudnn_lstm(dev, card, gen, lengths, reverse):
@@ -739,7 +772,8 @@ KERNEL_GROUPS = (("sru_proj_gemm", ("proj_gemm",)),
                  ("sru_fwd_scan", ("sru_fwd_scan",)),
                  ("sru_bwd_scan", ("sru_bwd_scan",)),
                  ("lstm_fwd_scan", ("lstm_fwd_kernel",)),
-                 ("lstm_bwd_scan", ("lstm_bwd_kernel",)),
+                 ("lstm_bwd_scan", ("lstm_bwd_kernel",
+                                    "lstm_bwd_cluster_kernel")),
                  ("linear_recurrence_fwd", ("linear_recurrence_fwd",)),
                  ("linear_recurrence_bwd", ("linear_recurrence_bwd",)),
                  ("library GEMMs (dx, dW, D, head, MLPG)",
@@ -753,7 +787,8 @@ def phase_profile(tag, run_steps, ms_unprofiled, card):
     copies, fills; not annotations); the idle share is 1 - busy / the
     traced wall span of the steps, both from this one trace.  The profiler
     adds host time per launch, so that idle share is an upper bound for an
-    unprofiled step."""
+    unprofiled step.  Returns the device events' names, or None when the
+    trace holds no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -775,7 +810,7 @@ def phase_profile(tag, run_steps, ms_unprofiled, card):
     if not span or not dev:
         print(f"[{tag}P] the trace holds no device activity: device time not "
               f"measured  [{card}]")
-        return
+        return None
     t0, t1 = span[0].time_range.start, span[0].time_range.end
     wall = (t1 - t0) / 1e3 / PROFILE_STEPS
     busy = _union_us([(e.time_range.start, e.time_range.end)
@@ -803,6 +838,7 @@ def phase_profile(tag, run_steps, ms_unprofiled, card):
         print(f"[{tag}P]   {g:40s} {t:8.3f} ms/step {100 * t / summed:5.1f}%")
     for name, t in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"[{tag}P]   top {t:8.3f} ms/step  {name[:90]}")
+    return set(per_name)
 
 
 def phase_small_step(dev, tag, hp):
@@ -1071,7 +1107,14 @@ def main():
         with plain_versions_forbidden():
             counts, ms, run_steps = phase_main_path(dev, card, tag, hp,
                                                     per_step, n_expected)
-            phase_profile(tag, run_steps, ms, card)
+            names = phase_profile(tag, run_steps, ms, card)
+            if counts["lstm_bwd_scan"] and names is not None:
+                took = any("lstm_bwd_cluster_kernel" in n for n in names)
+                print(f"[{tag}] the trace holds lstm_bwd_scan's cluster "
+                      f"kernel: {took}")
+                if not took:
+                    fail(f"step {tag}: lstm_bwd_scan did not run its "
+                         f"cluster kernel")
         for k, n in counts.items():
             launches[k] += n
     phase_small_step(dev, "5", acoustic_hp(

@@ -27,45 +27,85 @@
 // shared memory), and streaming W_hh from L2 every step would read 2 MB per
 // block per step.  The work of one step is small (B=20, H=512: 84 MFLOP for
 // both directions), so a step's latency, not bandwidth or FLOPs, bounds the
-// kernel.
+// kernel: T x (one exchange between SMs, one barrier, the cell).
 //
-// The design: a persistent kernel.  Each direction's hidden units are spread
-// over up to 64 blocks (8 units each at H=512).  A block keeps its slice of
-// W_hh in shared memory for the whole launch (the columns of its units' four
-// gates in the forward, the rows of its units in the backward: 32 KB in
-// bf16), holds its units' carries in shared memory, and walks all of T.
-// Each step the blocks of one direction exchange what the next step needs
-// through global memory (h_t in a small scratch, double-buffered by step
-// parity, in the forward; dgates_t straight from dxp in the backward) and
-// meet at a barrier: one counter per direction, counting arrivals
-// monotonically over the launch, so it is never reset.  The two directions
-// never wait on each other.  The barrier needs every block resident at
-// once, so the launch is cooperative: cudaLaunchCooperativeKernel refuses a
-// grid that could not be, and the caller raises.
+// The backward, bf16 with H = 256 or 512 and B <= 24 (the training steps'
+// shapes): one thread-block cluster of 16 blocks (the non-portable size)
+// per direction, each block owning U = H / 16 hidden units, 512 threads.
+// The hardware schedules a cluster's blocks together, so neither a
+// cooperative launch nor a global barrier counter is needed, and a block
+// can copy into the shared memory of the others (distributed shared
+// memory).  Per block:
+//
+//   * W_hh never leaves registers: the block's product takes its own 4U
+//     gate columns for all H rows, held as mma.sync A fragments for the
+//     whole launch, warp w the U rows that block w owns (64 registers a
+//     thread at H=512).
+//   * Per step, each thread's cell (two adjacent units of one row b) forms
+//     dgates_t from the carried dh and dc and the stored g4, c and gy,
+//     stores it to dxp and, as bf16, to shared memory.  After one block
+//     barrier, warp w forms the partial dh^T = W_hh[wU:(w+1)U, block's
+//     columns] dgates_t^T (m16n8k16, f32 accumulation, B padded to 24) and
+//     sends it to block w with one bulk copy (cp.async.bulk, shared::cta to
+//     shared::cluster), whose bytes complete a transaction barrier
+//     (mbarrier) in block w: a reduce-scatter, (B rounded up to 4) x (U+2)
+//     f32 to each block, no cluster-wide barrier.  Each block waits on its
+//     barrier of the step's parity and sums the 16 slices in the order of
+//     their source, so the result does not depend on timing.
+//   * The next step's g4, c_t, c_{t-1} and gy, which do not depend on the
+//     recurrence, are copied by cp.async into the slots of the thread that
+//     reads them while the current step runs; the dxp stores are never
+//     waited for.  The receive slots, dgates_t and the input slots are
+//     double-buffered by step parity: 206 KB of the 227 KB at H=512.
+//   * What stays on the serial chain: the barrier wait, the sums, the cell,
+//     one block barrier, the product (K/16 dependent mma steps), the bulk
+//     copies' flight.  On an H100 at B=20, H=512 a step takes about 3.5 us
+//     (2.2 us at B=1); a cluster barrier per step with per-thread remote
+//     stores instead took 7.1 us, mostly the stores and the barrier's
+//     release of every earlier store (dxp included).
+//
+// Every other backward shape (f32 I/O, whose W_hh slices would not fit in
+// registers; H other than 256 or 512; B above 24) and the forward take the
+// cooperative design, chosen by shape in the launcher: a persistent kernel.
+// Each direction's hidden units are spread over up to 64 blocks (8 units
+// each at H=512).  A block keeps its slice of W_hh in shared memory for the
+// whole launch (the columns of its units' four gates in the forward, the
+// rows of its units in the backward: 32 KB in bf16), holds its units'
+// carries in shared memory, and walks all of T.  Each step the blocks of
+// one direction exchange what the next step needs through global memory
+// (h_t in a small scratch, double-buffered by step parity, in the forward;
+// dgates_t straight from dxp in the backward) and meet at a barrier: one
+// counter per direction, counting arrivals monotonically over the launch,
+// so it is never reset.  The two directions never wait on each other.  The
+// barrier needs every block resident at once, so the launch is
+// cooperative: cudaLaunchCooperativeKernel refuses a grid that could not
+// be, and the caller raises.
 //
 // Per step a block stages the exchanged activations into shared memory and
-// forms its slice of the product.  In bf16 (the training step's I/O), when
-// the slice is 8, 16 or 32 columns wide and H a multiple of 16, the rows
-// are staged in one pass of 16-byte cp.async copies and the product runs
-// on the tensor cores (mma.sync m16n8k16, f32 accumulation); otherwise
-// (f32 I/O, odd shapes) they are staged as f32 in chunks and each of 256
-// threads accumulates up to 32 rows for one column over a strided slice of
-// k with FMA.  Partial sums are reduced through shared memory.  On an H100
-// at B=20, H=512, bf16, with both directions, a step takes about 6.9 us
-// forward and 7.4 us backward (FMA products: 14 and 23 us).  What is left
-// is mostly latency: the barrier (about 1.2 us: store, fence, atomic,
-// spin), the staging's round trip through L2 (the backward's 64 blocks of
-// a direction each read all 80 KB of dgates_t) and the cells' scattered
-// loads.  No TMA, wgmma or clusters yet.
+// forms its slice of the product.  In bf16, when the slice is 8, 16 or 32
+// columns wide and H a multiple of 16, the rows are staged in one pass of
+// 16-byte cp.async copies and the product runs on the tensor cores
+// (mma.sync m16n8k16, f32 accumulation); otherwise (f32 I/O, odd shapes)
+// they are staged as f32 in chunks and each of 256 threads accumulates up
+// to 32 rows for one column over a strided slice of k with FMA.  Partial
+// sums are reduced through shared memory.  On an H100 at B=20, H=512, bf16,
+// with both directions, a step takes about 7.2 us forward and 7.7 us in
+// this design's backward: mostly latency, the barrier (about 1.2 us: store,
+// fence, atomic, spin), the staging's round trip through L2 (each of a
+// direction's 64 blocks reads all 80 KB of dgates_t in the backward) and
+// the cells' scattered loads.
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns a cudaError_t code.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -510,6 +550,394 @@ lstm_bwd_kernel(const T* __restrict__ whh, const int* __restrict__ lengths,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward, one thread-block cluster per direction (see the note at the top
+// of the file): bf16, H = 256 * MT, B <= kCMaxB.  Layouts as above.
+// ---------------------------------------------------------------------------
+
+constexpr int kCThreads = 512;  // 16 warps: warp w forms the slice block w owns
+constexpr int kCBlocks = 16;    // blocks in a cluster: the non-portable size
+constexpr int kCMaxB = 24;      // rows: three n8 tiles
+
+// Shapes the cluster kernel takes; the launcher sends the rest to the
+// cooperative one.
+inline bool cluster_takes(int B, int H, int bf16) {
+  return bf16 && (H == 256 || H == 512) && B >= 1 && B <= kCMaxB;
+}
+
+// Per block of U hidden units (H = 16 U): K = 4U gate columns, dgates_t
+// rows of K + 8 bf16 (fragment loads hit 32 banks), partial slices of
+// kCMaxB rows of U + 2 f32 (even, for float2 reads).
+template <int U>
+struct ClusterShape {
+  static constexpr int K = 4 * U, BStride = K + 8, Row = U + 2;
+  static constexpr int Slot = kCMaxB * Row;
+};
+
+// Dynamic shared memory: the receive slots of both step parities, the
+// send slices, dgates_t of both parities, and each thread's cell inputs of
+// both parities (c_t, c_{t-1} as float2; g4's four gates and gy as bf16x2).
+template <int U>
+constexpr size_t cluster_smem_bytes() {
+  using S = ClusterShape<U>;
+  return sizeof(float) * 3 * kCBlocks * S::Slot +
+         sizeof(__nv_bfloat16) * 2 * kCMaxB * S::BStride +
+         2 * kCThreads * (2 * sizeof(float2) + 5 * sizeof(uint32_t));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Returns once the phase of parity ``parity`` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The address in block ``rank`` of the cluster of this block's shared
+// address ``addr``.
+__device__ __forceinline__ uint32_t peer_u32(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// One bulk copy of ``bytes`` (a multiple of 16) from this block's shared
+// memory into a peer's, completing as transactions on the peer's barrier.
+__device__ __forceinline__ void bulk_to_peer(uint32_t dst, uint32_t src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A 4- or 8-byte cp.async from global into shared memory.
+template <int N>
+__device__ __forceinline__ void cp_async_small(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(N)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t ldg32(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+__device__ __forceinline__ float2 bf2(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
+template <int U>
+__global__ void __launch_bounds__(kCThreads, 1)
+lstm_bwd_cluster_kernel(const __nv_bfloat16* __restrict__ whh,
+                        const int* __restrict__ lengths,
+                        const float* __restrict__ c,
+                        const __nv_bfloat16* __restrict__ g4,
+                        const __nv_bfloat16* __restrict__ gy,
+                        __nv_bfloat16* __restrict__ dxp,
+                        float* __restrict__ dbp, int nt, int B, int ndir,
+                        int rev_mask) {
+  using S = ClusterShape<U>;
+  constexpr int H = kCBlocks * U, K = S::K, MT = U / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[2];  // a parity's slices arrived
+  float* recv = reinterpret_cast<float*>(smem);  // [2][16 sources][Slot]
+  float* send = recv + 2 * kCBlocks * S::Slot;   // [16 peers][Slot]
+  // dgates_t [2][kCMaxB][BStride], then the inputs, [2][kCThreads] each
+  __nv_bfloat16* Bs =
+      reinterpret_cast<__nv_bfloat16*>(send + kCBlocks * S::Slot);
+  float2* in_c = reinterpret_cast<float2*>(Bs + 2 * kCMaxB * S::BStride);
+  float2* in_cp = in_c + 2 * kCThreads;
+  uint32_t* in_g4 = reinterpret_cast<uint32_t*>(in_cp + 2 * kCThreads);
+  uint32_t* in_gy = in_g4 + 2 * 4 * kCThreads;  // g4 is [2][4][kCThreads]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rank = (int)cluster.block_rank();
+  const int d = blockIdx.x / kCBlocks, j0 = rank * U;
+  const int rev = (rev_mask >> d) & 1;
+  const size_t G = (size_t)ndir * 4 * H, Y = (size_t)ndir * H;
+  // the rows a slice carries, a multiple of 4 so that it is whole 16 bytes
+  const uint32_t slice_bytes = ((B + 3) & ~3) * S::Row * sizeof(float);
+
+  // Warp w's A fragments for the whole launch: W_hh rows (hidden units)
+  // w U + [0, U), those block w owns, and this block's gate columns
+  // k = 0..K-1 (gate k / U, unit j0 + k % U).  A fragment's k and k + 8
+  // lie in one gate.
+  const int u0 = warp * U;
+  uint32_t a[MT][K / 16][4];
+  {
+    const __nv_bfloat16* w = whh + (size_t)d * H * 4 * H;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int ks = 0; ks < K / 16; ++ks) {
+        const int k = ks * 16 + 2 * t4;
+        const __nv_bfloat16* r0 = w + (size_t)(u0 + mt * 16 + g) * 4 * H +
+                                  (k / U) * H + j0 + k % U;
+        const __nv_bfloat16* r8 = r0 + (size_t)8 * 4 * H;
+        a[mt][ks][0] = ldg32(r0);
+        a[mt][ks][1] = ldg32(r8);
+        a[mt][ks][2] = ldg32(r0 + 8);
+        a[mt][ks][3] = ldg32(r8 + 8);
+      }
+  }
+
+  // This thread's cell: units jj and jj + 1 of row b.
+  const int b = tid / (U / 2), jj = 2 * (tid % (U / 2)), j = j0 + jj;
+  const bool cell = b < B;
+  const int len = cell ? lengths[b] : 0;
+  float dh[2] = {0.f, 0.f}, dc[2] = {0.f, 0.f};
+  float db[4][2] = {};
+
+  // Stage this thread's cell inputs of traversal step s (none depends on
+  // the recurrence) with cp.async into the slots of parity p; only this
+  // thread reads them.
+  auto prefetch = [&](int s, int p) {
+    if (!cell) return;
+    const int t = rev ? s : nt - 1 - s, tp = rev ? t + 1 : t - 1;
+    const size_t row = (size_t)t * B + b;
+    const int i = p * kCThreads + tid;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      cp_async_small<4>(in_g4 + (p * 4 + q) * kCThreads + tid,
+                        g4 + row * G + (size_t)d * 4 * H + q * H + j);
+    cp_async_small<4>(in_gy + i, gy + row * Y + (size_t)d * H + j);
+    cp_async_small<8>(in_c + i, c + row * Y + (size_t)d * H + j);
+    if (tp >= 0 && tp < nt)
+      cp_async_small<8>(in_cp + i,
+                        c + ((size_t)tp * B + b) * Y + (size_t)d * H + j);
+    else
+      in_cp[i] = make_float2(0.f, 0.f);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  if (tid == 0) {
+    mbar_init(smem_u32(&full[0]), 1);
+    mbar_init(smem_u32(&full[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // armed for the first slices of each parity: one from every block
+    mbar_expect_tx(smem_u32(&full[0]), kCBlocks * slice_bytes);
+    mbar_expect_tx(smem_u32(&full[1]), kCBlocks * slice_bytes);
+  }
+  for (int i = tid; i < 2 * kCMaxB * S::BStride; i += kCThreads)
+    Bs[i] = __float2bfloat16(0.f);  // rows past B stay zero
+  prefetch(0, 0);
+  // every block's barriers are set up before any slice is sent
+  cluster.sync();
+
+  for (int s = 0; s < nt; ++s) {
+    const int t = rev ? s : nt - 1 - s, p = s & 1;
+    if (s > 0) {
+      const uint32_t bar = smem_u32(&full[p ^ 1]);
+      mbar_wait(bar, ((s - 1) >> 1) & 1);  // step s-1's slices are in
+      // Re-armed for step s+1's slices.  None can arrive before this
+      // block has sent its step-s slices, after the barrier below.
+      if (tid == 0) mbar_expect_tx(bar, kCBlocks * slice_bytes);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");  // step s's inputs
+    if (s + 1 < nt) prefetch(s + 1, p ^ 1);
+    __nv_bfloat16* bs = Bs + p * kCMaxB * S::BStride;
+    if (cell) {
+      if (s > 0) {  // the slices of the 16 blocks, summed in their order
+        const float* part = recv + (p ^ 1) * kCBlocks * S::Slot +
+                            b * S::Row + jj;
+        float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+        for (int src = 0; src < kCBlocks; ++src) {
+          const float2 v =
+              *reinterpret_cast<const float2*>(part + src * S::Slot);
+          acc.x += v.x;
+          acc.y += v.y;
+        }
+        dh[0] += acc.x;
+        dh[1] += acc.y;
+      }
+      const int i = p * kCThreads + tid;
+      const float2 ig = bf2(in_g4[(p * 4) * kCThreads + tid]);
+      const float2 fg = bf2(in_g4[(p * 4 + 1) * kCThreads + tid]);
+      const float2 gg = bf2(in_g4[(p * 4 + 2) * kCThreads + tid]);
+      const float2 og = bf2(in_g4[(p * 4 + 3) * kCThreads + tid]);
+      const float2 gyv = bf2(in_gy[i]), ct = in_c[i], cp = in_cp[i];
+      const float m = t < len ? 1.f : 0.f;
+      float dg[4][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float ie = e ? ig.y : ig.x, fe = e ? fg.y : fg.x;
+        const float ge = e ? gg.y : gg.x, oe = e ? og.y : og.x;
+        const float tc = tanhf(e ? ct.y : ct.x);
+        const float da = m * (dh[e] + (e ? gyv.y : gyv.x));
+        const float do_ = da * tc;
+        const float dc_new = da * oe * (1.f - tc * tc) + m * dc[e];
+        dg[0][e] = dc_new * ge * ie * (1.f - ie);
+        dg[1][e] = dc_new * (e ? cp.y : cp.x) * fe * (1.f - fe);
+        dg[2][e] = dc_new * ie * (1.f - ge * ge);
+        dg[3][e] = do_ * oe * (1.f - oe);
+        dh[e] = (1.f - m) * dh[e];
+        dc[e] = (1.f - m) * dc[e] + dc_new * fe;
+      }
+      __nv_bfloat16* dr =
+          dxp + ((size_t)t * B + b) * G + (size_t)d * 4 * H + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const __nv_bfloat162 v = __floats2bfloat162_rn(dg[q][0], dg[q][1]);
+        *reinterpret_cast<__nv_bfloat162*>(dr + (size_t)q * H) = v;
+        *reinterpret_cast<__nv_bfloat162*>(bs + b * S::BStride + q * U +
+                                           jj) = v;
+        db[q][0] += dg[q][0];
+        db[q][1] += dg[q][1];
+      }
+    }
+    if (s + 1 == nt) break;
+    __syncthreads();  // dgates_t is in bs
+
+    // Warp w's partial dh^T: W_hh rows w U + [0, U) (rows of A) x 24 rows
+    // of dgates_t (columns of the tile), from this block's K gate columns.
+    float acc[MT][3][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < 3; ++n)
+        acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < K / 16; ++ks) {
+      uint32_t b0[3], b1[3];
+#pragma unroll
+      for (int n = 0; n < 3; ++n) {
+        const __nv_bfloat16* bp =
+            bs + (n * 8 + g) * S::BStride + ks * 16 + 2 * t4;
+        b0[n] = lds32(bp);
+        b1[n] = lds32(bp + 8);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < 3; ++n)
+          mma_bf16(acc[mt][n], a[mt][ks], b0[n], b1[n]);
+    }
+    // Into the slice for block ``warp``, [row][unit], once the copy of
+    // step s-1 has read it; then one bulk copy into that block's slot for
+    // this block, in its buffer of parity p.
+    float* sl = send + warp * S::Slot;
+    if (lane == 0)
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    __syncwarp();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < 3; ++n) {
+        float* o = sl + (n * 8 + 2 * t4) * S::Row + mt * 16 + g;
+        o[0] = acc[mt][n][0];
+        o[S::Row] = acc[mt][n][1];
+        o[8] = acc[mt][n][2];
+        o[S::Row + 8] = acc[mt][n][3];
+      }
+    // the slice, written by this proxy, is read by the copy engine's
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) {
+      const uint32_t dst =
+          smem_u32(recv + (p * kCBlocks + rank) * S::Slot);
+      bulk_to_peer(peer_u32(dst, warp), smem_u32(sl), slice_bytes,
+                   peer_u32(smem_u32(&full[p]), warp));
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+  }
+  // a block leaves only once its copies have read its shared memory
+  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  if (cell) {
+    float* out = dbp + (size_t)b * G + (size_t)d * 4 * H + j;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      *reinterpret_cast<float2*>(out + (size_t)q * H) =
+          make_float2(db[q][0], db[q][1]);
+  }
+}
+
+// The launch configuration of the cluster kernel, after its attributes:
+// the shared memory beyond 48 KB and the non-portable cluster size (16).
+template <int U>
+cudaError_t cluster_config(int ndir, cudaStream_t stream,
+                           cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
+  constexpr size_t smem = cluster_smem_bytes<U>();
+  cudaError_t e = cudaFuncSetAttribute(
+      lstm_bwd_cluster_kernel<U>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(lstm_bwd_cluster_kernel<U>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (e != cudaSuccess) return e;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)(ndir * kCBlocks));
+  cfg->blockDim = dim3(kCThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCBlocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int U>
+cudaError_t cluster_bwd_launch(const __nv_bfloat16* whh, const int* lengths,
+                               const float* c, const __nv_bfloat16* g4,
+                               const __nv_bfloat16* gy, __nv_bfloat16* dxp,
+                               float* dbp, int nt, int B, int ndir,
+                               int rev_mask, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = cluster_config<U>(ndir, stream, &cfg, attr);
+  if (e != cudaSuccess) return e;
+  e = cudaLaunchKernelEx(&cfg, lstm_bwd_cluster_kernel<U>, whh, lengths, c,
+                         g4, gy, dxp, dbp, nt, B, ndir, rev_mask);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <int U>
+cudaError_t cluster_occupancy(int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = cluster_config<U>(1, 0, &cfg, attr);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveClusters(clusters, lstm_bwd_cluster_kernel<U>,
+                                        &cfg);
+}
+
 // Hidden units per block and blocks per direction.
 inline int split_units(int H, int* hs) {
   *hs = (H + kMaxBlocksPerDir - 1) / kMaxBlocksPerDir;
@@ -600,12 +1028,33 @@ int lstm_fwd_scan(const void* xp, const void* whh, const float* bias,
                            ndir, rev_mask, s);
 }
 
+// The backward's design at a shape: 1 the cluster kernel, 0 the
+// cooperative one (which alone reads ``bar``).
+int lstm_bwd_design(int B, int H, int bf16) {
+  return cluster_takes(B, H, bf16) ? 1 : 0;
+}
+
+// How many clusters of the backward's cluster kernel at this H (256 or
+// 512) can be resident at once on the current device, into ``clusters``.
+int lstm_bwd_cluster_occupancy(int H, int* clusters) {
+  if (H == 512) return (int)cluster_occupancy<32>(clusters);
+  if (H == 256) return (int)cluster_occupancy<16>(clusters);
+  return (int)cudaErrorInvalidValue;
+}
+
 int lstm_bwd_scan(const void* whh, const int* lengths, const float* c,
                   const void* g4, const void* gy, void* dxp, float* dbp,
                   unsigned* bar, int T, int B, int H, int ndir, int rev_mask,
                   int bf16, void* stream) {
   if (T == 0 || B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (cluster_takes(B, H, bf16)) {
+    typedef const __nv_bfloat16* P;
+    return (int)(H == 512 ? cluster_bwd_launch<32>
+                          : cluster_bwd_launch<16>)(
+        (P)whh, lengths, c, (P)g4, (P)gy, (__nv_bfloat16*)dxp, dbp, T, B,
+        ndir, rev_mask, s);
+  }
   if (bf16)
     return bwd_launch<__nv_bfloat16>(
         (const __nv_bfloat16*)whh, lengths, c, (const __nv_bfloat16*)g4,

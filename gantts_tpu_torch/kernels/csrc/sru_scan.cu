@@ -21,12 +21,10 @@
 //   sru_fwd_scan   the scan half of `_psru_fwd_kernel` and all of
 //                  `_fused_fwd_kernel`: bias add, gates, length mask, the
 //                  recurrence c_t = fm_t * c_{t-1} + bm_t and the highway
-//                  output, from a precomputed u.  One thread owns one
-//                  (b, h) lane and walks T with c in a register, issuing
-//                  the loads of kUnroll steps before the dependent
-//                  arithmetic; blocks of 64 threads spread the 10,240 lanes
-//                  of the step over all SMs.  Latency-bound: too few loads
-//                  in flight for the card's bandwidth.
+//                  output, from a precomputed u, time-chunked as the
+//                  backward (see "Forward scan" below).  Bound by bytes: u
+//                  in on valid frames, h and c out, 63 MB at the step's
+//                  shape in bf16, 0.019 ms at 3.35 TB/s.
 //
 //   sru_bwd_scan   `_fused_bwd_kernel`: the adjoint recurrence
 //                  ghat_t = a_t + fm_{t+1} * ghat_{t+1} (a = gh m r g'(c)),
@@ -48,24 +46,6 @@
 #include <stdint.h>
 
 namespace {
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's cast
-}
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
@@ -502,64 +482,6 @@ cudaError_t launch_proj_gemm_bf16(const void* x, const void* w, void* u, int M,
 }
 
 // ---------------------------------------------------------------------------
-// Forward scan: one thread per (b, h) lane, u laid out (T, B, 4H) as
-// [x~ | f | r | x'] blocks, h / c / gh laid out (T, B, H).
-// ---------------------------------------------------------------------------
-
-constexpr int kUnroll = 8;
-constexpr int kScanThreads = 64;
-
-template <typename T>
-__global__ void __launch_bounds__(kScanThreads)
-sru_fwd_scan_kernel(const T* __restrict__ u, const float* __restrict__ bias4,
-                    const int* __restrict__ lengths, T* __restrict__ h,
-                    float* __restrict__ c, int nt, int B, int H, int reverse,
-                    int use_relu) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B * H) return;
-  const int b = lane / H, j = lane - b * H;
-  const float bf = bias4[H + j], br = bias4[2 * H + j];
-  const int len = lengths[b];
-  const size_t us = (size_t)B * 4 * H, hs = (size_t)B * H;
-  const T* ub = u + (size_t)b * 4 * H + j;
-  T* hb = h + (size_t)b * H + j;
-  float* cb = c + (size_t)b * H + j;
-
-  float carry = 0.f;
-  for (int s0 = 0; s0 < nt; s0 += kUnroll) {
-    float xt[kUnroll], uf[kUnroll], ur[kUnroll], xp[kUnroll];
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i) {
-      const int s = s0 + i;
-      if (s < nt) {
-        const int t = reverse ? nt - 1 - s : s;
-        const T* ut = ub + (size_t)t * us;
-        xt[i] = to_f32(ut[0]);
-        uf[i] = to_f32(ut[H]);
-        ur[i] = to_f32(ut[2 * H]);
-        xp[i] = to_f32(ut[3 * H]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i) {
-      const int s = s0 + i;
-      if (s < nt) {
-        const int t = reverse ? nt - 1 - s : s;
-        const float m = t < len ? 1.f : 0.f;
-        const float f = sigmoidf(uf[i] + bf);
-        const float fm = f * m + (1.f - m);
-        const float bm = (1.f - f) * xt[i] * m;
-        carry = fm * carry + bm;
-        const float r = sigmoidf(ur[i] + br);
-        const float g = use_relu ? fmaxf(carry, 0.f) : tanhf(carry);
-        hb[(size_t)t * hs] = from_f32<T>((r * g + (1.f - r) * xp[i]) * m);
-        cb[(size_t)t * hs] = carry;
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Backward scan, time-chunked
 //
 // What bounds it: bytes (u, c, gh in; du out), but only with enough loads in
@@ -607,7 +529,7 @@ sru_fwd_scan_kernel(const T* __restrict__ u, const float* __restrict__ bias4,
 // ---------------------------------------------------------------------------
 
 constexpr int kChunks = 16, kSub = 4, kPairs = 8;
-constexpr int kBwdThreads = kChunks * kPairs;
+constexpr int kScanThreads = kChunks * kPairs;
 constexpr int kWindow = kChunks * kSub;
 constexpr int kMaxGroups = 4096;
 
@@ -654,8 +576,34 @@ __device__ __forceinline__ void store_lanes(__nv_bfloat16* p,
     *p = __float2bfloat16(v[0]);
 }
 
+// The fold of a window, by thread row 0: the summaries (E, F) of the
+// window's kChunks runs, in s_e and s_f, are joined serially from
+// ``carry``; each run's carry_in replaces its E, and ``carry`` becomes the
+// window's end.
+template <int V, int L>
+__device__ __forceinline__ void fold_runs(float (&s_e)[kChunks][L],
+                                          const float (&s_f)[kChunks][L],
+                                          float (&carry)[V], int q) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    float e[kChunks], f[kChunks];
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      e[j] = s_e[j][q * V + i];
+      f[j] = s_f[j][q * V + i];
+    }
+    float cr = carry[i];
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      s_e[j][q * V + i] = cr;  // run j's carry_in
+      cr = e[j] + f[j] * cr;
+    }
+    carry[i] = cr;
+  }
+}
+
 template <typename T, int V>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kScanThreads)
 sru_bwd_scan_kernel(const T* __restrict__ u, const float* __restrict__ bias4,
                     const int* __restrict__ lengths,
                     const float* __restrict__ c, const T* __restrict__ gh,
@@ -785,24 +733,7 @@ sru_bwd_scan_kernel(const T* __restrict__ u, const float* __restrict__ bias4,
       s_f[p][q * V + i] = pp[i];
     }
     __syncthreads();
-    if (p == 0) {
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        float e[kChunks], f[kChunks];
-#pragma unroll
-        for (int j = 0; j < kChunks; ++j) {
-          e[j] = s_e[j][q * V + i];
-          f[j] = s_f[j][q * V + i];
-        }
-        float cr = carry[i];
-#pragma unroll
-        for (int j = 0; j < kChunks; ++j) {
-          s_e[j][q * V + i] = cr;  // run j's carry_in
-          cr = e[j] + f[j] * cr;
-        }
-        carry[i] = cr;
-      }
-    }
+    if (p == 0) fold_runs<V>(s_e, s_f, carry, q);
     __syncthreads();
 
     // pass 2
@@ -883,18 +814,180 @@ cudaError_t launch_bwd_scan(const void* u, const float* bias4,
   if (B == 0 || H == 0) return cudaSuccess;
   const dim3 grid((unsigned)(B * groups));
   if (V == 2)
-    sru_bwd_scan_kernel<T, 2><<<grid, kBwdThreads, 0, s>>>(
+    sru_bwd_scan_kernel<T, 2><<<grid, kScanThreads, 0, s>>>(
         (const T*)u, bias4, lengths, c, (const T*)gh, (T*)du, dbp, db, nt, B,
         H, reverse, use_relu);
   else
-    sru_bwd_scan_kernel<T, 1><<<grid, kBwdThreads, 0, s>>>(
+    sru_bwd_scan_kernel<T, 1><<<grid, kScanThreads, 0, s>>>(
         (const T*)u, bias4, lengths, c, (const T*)gh, (T*)du, dbp, db, nt, B,
         H, reverse, use_relu);
   return cudaGetLastError();
 }
 
-inline dim3 scan_grid(int B, int H) {
-  return dim3((unsigned)((B * H + kScanThreads - 1) / kScanThreads));
+// ---------------------------------------------------------------------------
+// Forward scan, time-chunked
+//
+// What bounds it: bytes (u in on valid frames; h and c out), with enough
+// loads in flight, as the backward above.  One thread per (b, h) lane
+// walking all of T with scalar 2-byte bf16 accesses keeps too few of them
+// in flight (17x the bound on an H100).  This is the backward's design
+// applied to c:
+//
+//   * c is affine in its carry.  For a run of steps starting at s0 (in the
+//     forward's traversal order), c_s = loc_s + P_s * carry_in, where loc is
+//     the run's scan c = fm c + bm from a zero carry and P_s the product of
+//     fm over the run's steps up to s.  A run's summary (E, F) = (loc_last,
+//     P_last) maps carry_in to the next run's: carry_out = E + F * carry_in.
+//   * The block layout, windows and runs are the backward's: 128 threads own
+//     kPairs * V consecutive h of one b (V = 2 lanes a thread, bf16x2 /
+//     float2 accesses, when H is even), thread row p takes the kSub = 4
+//     steps at window + 4p of each kWindow = 64-step window.
+//   * Pass 1: each thread issues the loads of u's four blocks for its 4
+//     steps together, forms f, fm, loc and P, and keeps loc, P, r and x' in
+//     registers (32 at V = 2): u is read once.  Runs of padded frames only
+//     (t >= len) read nothing: there fm = 1 and bm = 0, so loc = 0, P = 1.
+//   * The 16 summaries go to shared memory; one thread row folds them
+//     serially from the previous window's carry (fold_runs, as above).
+//   * Pass 2: c = loc + P * carry_in and h = (r g(c) + (1 - r) x') m, all
+//     independent.  Padded frames get h = 0 and c = the carried value: the
+//     last valid c in the forward traversal (padding follows the valid
+//     frames), 0 in the reversed one (padding comes first).  The backward
+//     reads c at t and at the forward's previous step.
+//
+// Rounding: the recurrence is reassociated (run scans joined through their
+// carries), so c differs from the plain version's step-by-step sum by f32
+// rounding, which h inherits; h is rounded once to bf16, to nearest even.
+// ---------------------------------------------------------------------------
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kScanThreads)
+sru_fwd_scan_kernel(const T* __restrict__ u, const float* __restrict__ bias4,
+                    const int* __restrict__ lengths, T* __restrict__ h,
+                    float* __restrict__ c, int nt, int B, int H, int reverse,
+                    int use_relu) {
+  constexpr int kLanes = kPairs * V;
+  __shared__ float s_e[kChunks][kLanes], s_f[kChunks][kLanes];
+  const int groups = (H + kLanes - 1) / kLanes;
+  const int b = blockIdx.x / groups, grp = blockIdx.x % groups;
+  const int q = threadIdx.x % kPairs, p = threadIdx.x / kPairs;
+  const int j = grp * kLanes + q * V;
+  const bool live = j < H;
+  const int jc = live ? j : 0;  // dead lanes load lane 0 and store nothing
+  float bf[V], br[V];
+  load_lanes<V>(bias4 + H + jc, bf);
+  load_lanes<V>(bias4 + 2 * H + jc, br);
+  const int len = lengths[b];
+  const size_t us = (size_t)B * 4 * H, hs = (size_t)B * H;
+  const T* ub = u + (size_t)b * 4 * H + jc;
+  T* hb = h + (size_t)b * H + jc;
+  float* cb = c + (size_t)b * H + jc;
+  // time of traversal step s, clamped into range
+  auto time_of = [&](int s) {
+    s = s < nt ? s : nt - 1;
+    return reverse ? nt - 1 - s : s;
+  };
+
+  float carry[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) carry[i] = 0.f;
+
+  for (int w0 = 0; w0 < nt; w0 += kWindow) {
+    const int s0 = w0 + p * kSub;
+    // one branch around all of a run's loads keeps them issued together
+    bool valid[kSub], any = false;
+#pragma unroll
+    for (int k = 0; k < kSub; ++k) {
+      valid[k] = s0 + k < nt && time_of(s0 + k) < len;
+      any = any || valid[k];
+    }
+    float xt[kSub][V], uf[kSub][V], ur[kSub][V], xp[kSub][V];
+    if (any) {
+#pragma unroll
+      for (int k = 0; k < kSub; ++k) {
+        const T* ut = ub + (size_t)time_of(s0 + k) * us;
+        load_lanes<V>(ut, xt[k]);
+        load_lanes<V>(ut + H, uf[k]);
+        load_lanes<V>(ut + 2 * H, ur[k]);
+        load_lanes<V>(ut + 3 * H, xp[k]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kSub; ++k)
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          xt[k][i] = uf[k][i] = ur[k][i] = xp[k][i] = 0.f;
+    }
+
+    // pass 1: the run's scan from a zero carry
+    float loc[kSub][V], pr[kSub][V], r[kSub][V];
+    float l[V], pp[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      l[i] = 0.f;
+      pp[i] = 1.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kSub; ++k) {
+      const float m = valid[k] ? 1.f : 0.f;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float f = sigmoidf(uf[k][i] + bf[i]);
+        const float fm = f * m + (1.f - m);
+        l[i] = fm * l[i] + (1.f - f) * xt[k][i] * m;
+        pp[i] *= fm;
+        loc[k][i] = l[i];
+        pr[k][i] = pp[i];
+        r[k][i] = sigmoidf(ur[k][i] + br[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      s_e[p][q * V + i] = l[i];
+      s_f[p][q * V + i] = pp[i];
+    }
+    __syncthreads();
+    if (p == 0) fold_runs<V>(s_e, s_f, carry, q);
+    __syncthreads();
+
+    // pass 2
+    float cin[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) cin[i] = s_e[p][q * V + i];
+#pragma unroll
+    for (int k = 0; k < kSub; ++k) {
+      const int s = s0 + k;
+      const float m = valid[k] ? 1.f : 0.f;
+      float cv[V], hv[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        cv[i] = loc[k][i] + pr[k][i] * cin[i];
+        const float g = use_relu ? fmaxf(cv[i], 0.f) : tanhf(cv[i]);
+        hv[i] = (r[k][i] * g + (1.f - r[k][i]) * xp[k][i]) * m;
+      }
+      if (live && s < nt) {
+        const size_t t = time_of(s);
+        store_lanes<V>(hb + t * hs, hv);
+        store_lanes<V>(cb + t * hs, cv);
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_fwd_scan(const void* u, const float* bias4,
+                            const int* lengths, void* h, float* c, int nt,
+                            int B, int H, int reverse, int use_relu,
+                            cudaStream_t s) {
+  if (B == 0 || H == 0 || nt == 0) return cudaSuccess;
+  const int V = H % 2 == 0 ? 2 : 1;
+  const dim3 grid((unsigned)(B * ((H + kPairs * V - 1) / (kPairs * V))));
+  if (V == 2)
+    sru_fwd_scan_kernel<T, 2><<<grid, kScanThreads, 0, s>>>(
+        (const T*)u, bias4, lengths, (T*)h, c, nt, B, H, reverse, use_relu);
+  else
+    sru_fwd_scan_kernel<T, 1><<<grid, kScanThreads, 0, s>>>(
+        (const T*)u, bias4, lengths, (T*)h, c, nt, B, H, reverse, use_relu);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -922,16 +1015,11 @@ int sru_fwd_scan(const void* u, const float* bias4, const int* lengths,
                  void* h, float* c, int T, int B, int H, int reverse,
                  int use_relu, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    sru_fwd_scan_kernel<__nv_bfloat16><<<scan_grid(B, H), kScanThreads, 0, s>>>(
-        (const __nv_bfloat16*)u, bias4, lengths, (__nv_bfloat16*)h, c, T, B, H,
-        reverse, use_relu);
-  } else {
-    sru_fwd_scan_kernel<float><<<scan_grid(B, H), kScanThreads, 0, s>>>(
-        (const float*)u, bias4, lengths, (float*)h, c, T, B, H, reverse,
-        use_relu);
-  }
-  return (int)cudaGetLastError();
+  return (int)(bf16 ? launch_fwd_scan<__nv_bfloat16>(u, bias4, lengths, h, c,
+                                                     T, B, H, reverse,
+                                                     use_relu, s)
+                    : launch_fwd_scan<float>(u, bias4, lengths, h, c, T, B,
+                                             H, reverse, use_relu, s));
 }
 
 // dbp: (B, 2H) float32 scratch for the per-b partials; db: (4H,) float32.

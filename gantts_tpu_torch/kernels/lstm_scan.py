@@ -14,6 +14,16 @@ them on the card and what their design does about it):
                      the bias gradient (replaces ``_lstm_bwd_kernel`` and
                      ``_bilstm_bwd_kernel``).
 
+Two designs, chosen by shape in the launcher.  The forward, and the
+backward in f32 or at shapes the cluster layout does not divide, are
+persistent cooperative launches: a direction's blocks exchange each step's
+activations through global memory and meet at a grid barrier, so every
+block must be resident at once, or the launch fails and the wrapper raises.
+The backward in bf16 with H of 256 or 512 and B up to 24 (the training
+steps' shapes) runs one thread-block cluster per direction, exchanging
+partial products through distributed shared memory (``bwd_design`` says
+which a shape takes).
+
 The input projection, which the TPU kernels run inside their bodies, is the
 port's ``sru_proj_gemm`` (the counterpart of ``_proj_u``), one launch over
 both directions' concatenated W_ih.  dW_hh, dx and dW_ih stay library
@@ -53,6 +63,7 @@ from gantts_tpu_torch.kernels.sru_scan import (
 )
 
 launch_counts.update(lstm_fwd_scan=0, lstm_bwd_scan=0)
+BWD_DESIGNS = ("cooperative", "cluster")
 
 
 # ---------------------------------------------------------------------------
@@ -156,9 +167,31 @@ def _lib():
     lib.lstm_error_string.restype = ctypes.c_char_p
     lib.lstm_fwd_scan.argtypes = [P] * 9 + [I] * 6 + [P]
     lib.lstm_bwd_scan.argtypes = [P] * 8 + [I] * 6 + [P]
-    for fn in (lib.lstm_fwd_scan, lib.lstm_bwd_scan):
+    lib.lstm_bwd_design.argtypes = [I, I, I]
+    lib.lstm_bwd_cluster_occupancy.argtypes = [I, P]
+    for fn in (lib.lstm_fwd_scan, lib.lstm_bwd_scan, lib.lstm_bwd_design,
+               lib.lstm_bwd_cluster_occupancy):
         fn.restype = I
     return lib
+
+
+def bwd_design(B, H, dtype):
+    """The design ``lstm_bwd_scan``'s launcher takes at this shape:
+    "cluster" (bf16, H of 256 or 512, B up to 24) or "cooperative"."""
+    return BWD_DESIGNS[_lib().lstm_bwd_design(
+        B, H, int(dtype == torch.bfloat16))]
+
+
+def bwd_cluster_occupancy(H):
+    """How many clusters of the backward's cluster kernel (one per
+    direction) can be resident at once on the current device, at H = 256
+    or 512."""
+    n = ctypes.c_int(0)
+    code = _lib().lstm_bwd_cluster_occupancy(H, ctypes.addressof(n))
+    if code != 0:
+        msg = _lib().lstm_error_string(code).decode()
+        raise RuntimeError(f"lstm_bwd_cluster_occupancy: {code}: {msg}")
+    return n.value
 
 
 def _launched(name, code):
@@ -204,7 +237,9 @@ def lstm_fwd_scan(xp, whh, bias, lengths, reverse):
 
 def lstm_bwd_scan(whh, lengths, c, g4, gy, reverse):
     """-> (dxp in g4's dtype, db float32 (ndir, 4H)).  ``gy`` is the
-    cotangent of y in g4's dtype; ``reverse`` the forward layer's flags."""
+    cotangent of y in g4's dtype; ``reverse`` the forward layer's flags.
+    The launcher picks the design by shape (``bwd_design``); only the
+    cooperative one takes a barrier counter."""
     if _on_cpu(whh, lengths, c, g4, gy):
         return lstm_bwd_scan_plain(whh, lengths, c, g4, gy, reverse)
     name, dev = "lstm_bwd_scan", g4.device
@@ -218,10 +253,13 @@ def lstm_bwd_scan(whh, lengths, c, g4, gy, reverse):
     _require(name, gy, "gy", dev, (g4.dtype,), (T, B, ndir * H))
     dxp = torch.empty((T, B, ndir * 4 * H), dtype=g4.dtype, device=dev)
     dbp = torch.empty((B, ndir * 4 * H), dtype=torch.float32, device=dev)
-    bar = torch.zeros(ndir, dtype=torch.int32, device=dev)
+    design = bwd_design(B, H, g4.dtype)
+    bar = (torch.zeros(ndir, dtype=torch.int32, device=dev)
+           if design == "cooperative" else None)
     _launched(name, _lib().lstm_bwd_scan(
         whh.data_ptr(), lengths.data_ptr(), c.data_ptr(), g4.data_ptr(),
-        gy.data_ptr(), dxp.data_ptr(), dbp.data_ptr(), bar.data_ptr(),
+        gy.data_ptr(), dxp.data_ptr(), dbp.data_ptr(),
+        None if bar is None else bar.data_ptr(),
         T, B, H, ndir, mask, int(g4.dtype == torch.bfloat16), _stream(dev)))
     return dxp, dbp.sum(0).reshape(ndir, 4 * H)
 

@@ -12,11 +12,11 @@ on the card, what its design does about it, and how it rounds):
                      (replaces the scan of ``_psru_fwd_kernel`` and all of
                      ``_fused_fwd_kernel``);
   ``sru_bwd_scan``   the adjoint recurrence, du and the f/r bias gradient
-                     (replaces ``_fused_bwd_kernel``): T is split into runs
-                     whose scans are joined through their carries, so the
-                     kernel sums in another order than the plain version
-                     (f32 rounding apart), and it writes the whole (4H,)
-                     bias gradient itself.
+                     (replaces ``_fused_bwd_kernel``), writing the whole
+                     (4H,) bias gradient itself.
+
+Both scans split T into runs whose scans are joined through their carries,
+so they sum in another order than the plain versions (f32 rounding apart).
 
 Each wrapper takes the plain version when, and only when, its tensors lie on
 the CPU.  A CUDA tensor goes to the kernel; anything the kernel does not take
@@ -75,8 +75,12 @@ def sru_proj_gemm_plain(x2, w):
 def sru_fwd_scan_plain(u, bias4, lengths, reverse, use_relu):
     """Returns h (T, B, H) in u's dtype and c (T, B, H) float32.
 
-    A Python loop over T with exactly the kernel's cell math.  It is
-    differentiable, so the k=3 layer (no kernel yet) runs through it too."""
+    A Python loop over T with the kernel's cell math, summed step by step
+    (the kernel joins 4-step runs through their carries, f32 rounding
+    apart).  Padded frames (t >= length) get h = 0 and c = the carried
+    value: the last valid c in the forward traversal, 0 in the reversed
+    one, before the first valid frame.  It is differentiable; the CPU path
+    and the tests use it."""
     T, B, H4 = u.shape
     H = H4 // 4
     bf, br = bias4[H:2 * H].float(), bias4[2 * H:3 * H].float()

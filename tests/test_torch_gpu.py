@@ -191,6 +191,48 @@ def test_bwd_scan_across_runs_and_windows(cuda, dt, reverse, use_relu, Tn,
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("use_relu", [0, 1])
+@pytest.mark.parametrize("Tn,Bn,Hn", [(1, 3, 48), (3, 4, 50), (69, 3, 9),
+                                      (130, 2, 50), (200, 5, 48)])
+def test_fwd_scan_across_runs_and_windows(cuda, dt, reverse, use_relu, Tn,
+                                          Bn, Hn):
+    """The time-chunked forward scan against its plain version, at the
+    backward's shapes: T of one step, shorter than a 4-step run, not a
+    multiple of the run or of the 64-step window, and several windows;
+    lengths of 1 and T; H odd (one lane a thread) and even but not a
+    multiple of a block's 16 lanes.  Padded frames: h = 0, and c the
+    plain version's carried value (the last valid c going forward, 0 going
+    backward, before the first valid frame)."""
+    u, bias4, lengths, _ = _bwd_inputs(cuda, dt, Tn, Bn, Hn)
+    K.reset_launch_counts()
+    h_k, c_k = K.sru_fwd_scan(u, bias4, lengths, reverse, use_relu)
+    h_p, c_p = K.sru_fwd_scan_plain(u, bias4, lengths, reverse, use_relu)
+    torch.cuda.synchronize()
+    assert h_k.dtype == dt and h_k.shape == (Tn, Bn, Hn)
+    assert c_k.dtype == torch.float32 and c_k.shape == (Tn, Bn, Hn)
+    assert _rel(h_k, h_p) < TOL[dt] and _rel(c_k, c_p) < 1e-4
+    pad = torch.arange(Tn, device=cuda)[:, None] >= lengths[None, :]
+    assert (h_k[pad] == 0).all()
+    if pad.any():
+        assert _rel(c_k[pad], c_p[pad]) < 1e-4
+    if reverse:
+        assert (c_k[pad] == 0).all()
+    assert K.launch_counts["sru_fwd_scan"] == 1
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_fwd_scan_at_the_step_shape(cuda, dt, reverse):
+    """T=512, B=20, H=512, as the training step calls it."""
+    u, bias4, lengths, _ = _bwd_inputs(cuda, dt, 512, 20, 512)
+    h_k, c_k = K.sru_fwd_scan(u, bias4, lengths, reverse, 1)
+    h_p, c_p = K.sru_fwd_scan_plain(u, bias4, lengths, reverse, 1)
+    torch.cuda.synchronize()
+    assert _rel(h_k, h_p) < TOL[dt] and _rel(c_k, c_p) < 1e-4
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
 def test_bwd_scan_at_the_step_shape(cuda, dt, reverse):
     """T=512 (eight 64-step windows), B=20, H=512, as the training step
     calls it; and the same inputs again, so that a second launch finds the
@@ -207,7 +249,9 @@ def test_bwd_scan_at_the_step_shape(cuda, dt, reverse):
 # ---------------------------------------------------------------------------
 # LSTM kernels.  Shapes as tests/test_kernels.py's: T=21, B=3, H=9 with
 # lengths [21, 13, 5] (one block per hidden unit, H not a multiple of
-# anything), and the step's H=512 (64 blocks per direction, 8 units each).
+# anything), and the step's H=512 (the forward and the f32 backward: 64
+# cooperative blocks per direction, 8 units each; the bf16 backward: one
+# cluster of 16 blocks per direction, 32 units each).
 # Limits as above; c is f32, but in bf16 I/O it is fed by the bf16-rounded h
 # of earlier steps, so it is held to the bf16 limit there.
 # ---------------------------------------------------------------------------
@@ -256,6 +300,89 @@ def test_lstm_kernels_match_plain_versions(cuda, dt, reverse, Tn, Bn, Hn):
     torch.cuda.synchronize()
     assert L.launch_counts["lstm_fwd_scan"] == 1
     assert L.launch_counts["lstm_bwd_scan"] == 1
+
+
+def _traced(fn):
+    """fn()'s result and the names of the device kernels it ran, from
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA}
+
+
+def _lstm_bwd_case(dev, dt, reverse, Tn, Bn, Hn):
+    """whh, lengths, c, g4 and gy for the backward, c and g4 from the
+    forward kernel."""
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    xp, whh, bias, lengths, gy = _lstm_inputs(dev, dt, len(reverse), Tn, Bn,
+                                              Hn)
+    _, c, g4 = L.lstm_fwd_scan(xp, whh, bias, lengths, reverse)
+    return whh, lengths, c, g4, gy
+
+
+@pytest.mark.parametrize("reverse", LSTM_CASES)
+@pytest.mark.parametrize("Tn,Bn,Hn", [(64, 20, 512), (64, 1, 512),
+                                      (64, 20, 256)])
+def test_lstm_bwd_cluster_kernel(cuda, reverse, Tn, Bn, Hn):
+    """The thread-block-cluster backward (bf16, H of 256 or 512, B up to
+    24: 16 blocks a direction, of 32 or 16 units) against its plain
+    version, one and two directions; then the same inputs again, which
+    must give the same bits: the partial products are summed in a fixed
+    order, and nothing the first launch leaves behind reaches the
+    second."""
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    args = _lstm_bwd_case(cuda, torch.bfloat16, reverse, Tn, Bn, Hn)
+    (dxp_k, db_k), names = _traced(lambda: L.lstm_bwd_scan(*args, reverse))
+    assert any("lstm_bwd_cluster_kernel" in n for n in names), names
+    dxp_p, db_p = L.lstm_bwd_scan_plain(*args, reverse)
+    dxp_2, db_2 = L.lstm_bwd_scan(*args, reverse)
+    torch.cuda.synchronize()
+    assert _rel(dxp_k, dxp_p) < TOL[torch.bfloat16]
+    assert _rel(db_k, db_p) < 1e-3
+    lengths = args[1]
+    pad = torch.arange(Tn, device=cuda)[:, None] >= lengths[None, :]
+    assert (dxp_k[pad] == 0).all()
+    assert torch.equal(dxp_2, dxp_k) and torch.equal(db_2, db_k)
+
+
+@pytest.mark.parametrize("dt,Bn,Hn", [(torch.float32, 20, 512),
+                                      (torch.bfloat16, 3, 9),
+                                      (torch.bfloat16, 25, 256)])
+def test_lstm_bwd_takes_the_cooperative_kernel_by_shape(cuda, dt, Bn, Hn):
+    """f32 I/O, an H the cluster layout does not divide, and a B above its
+    24 rows take the cooperative kernel, and it still agrees."""
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    reverse = (False, True)
+    Tn = 21 if Bn == 3 else 40
+    args = _lstm_bwd_case(cuda, dt, reverse, Tn, Bn, Hn)
+    assert L.bwd_design(Bn, Hn, dt) == "cooperative"
+    (dxp_k, db_k), names = _traced(lambda: L.lstm_bwd_scan(*args, reverse))
+    assert any("lstm_bwd_kernel" in n for n in names), names
+    assert not any("lstm_bwd_cluster_kernel" in n for n in names)
+    dxp_p, db_p = L.lstm_bwd_scan_plain(*args, reverse)
+    torch.cuda.synchronize()
+    assert _rel(dxp_k, dxp_p) < TOL[dt] and _rel(db_k, db_p) < 1e-3
+
+
+def test_lstm_bwd_step_shape_takes_the_cluster_kernel(cuda):
+    """The training steps' bf16 shape (B=20, H=512) takes the cluster
+    kernel, and two of its 16-block clusters (one per direction) fit on the
+    card at once."""
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    assert L.bwd_design(20, 512, torch.bfloat16) == "cluster"
+    assert L.bwd_design(20, 512, torch.float32) == "cooperative"
+    assert L.bwd_cluster_occupancy(512) >= 2
+    assert L.bwd_cluster_occupancy(256) >= 2
 
 
 @pytest.mark.parametrize("bidirectional", [True, False])

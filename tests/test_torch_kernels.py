@@ -125,6 +125,42 @@ def test_u_layer_matches_jax(reverse, use_relu):
 
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("use_relu", [0, 1])
+def test_plain_forward_padding_contract(reverse, use_relu):
+    """What the chunked forward kernel's shortcut for runs of padded frames
+    must reproduce, pinned on ``sru_fwd_scan_plain``: h = 0 at padded
+    frames; c holds the last valid c through the padding in the forward
+    traversal and is 0 before the first valid frame in the reversed one.
+    h and c are held to the JAX package's ``_fused_fwd_call`` (the Pallas
+    kernel in interpret mode, which exposes c), f32, at shapes that need
+    no tile padding (B=8, H=128, T=32); the padding properties are checked
+    on the plain version alone, exactly."""
+    from gantts_tpu.kernels.sru_scan import _fused_fwd_call
+
+    T, B, H = 32, 8, 128
+    rs = np.random.RandomState(8)
+    u = rs.randn(T, B, 4 * H).astype(np.float32)
+    bias4 = np.r_[np.zeros(H), rs.randn(2 * H) * 0.3,
+                  np.zeros(H)].astype(np.float32)
+    lengths = np.array([32, 1, 5, 16, 17, 31, 9, 2], np.int32)
+    len_bc = np.broadcast_to(lengths[:, None].astype(np.float32), (B, H))
+    b2d = np.broadcast_to(bias4[None, :], (8, 4 * H))
+    h_ref, c_ref, _ = _fused_fwd_call(jnp.asarray(u), jnp.asarray(b2d),
+                                      jnp.asarray(len_bc), reverse,
+                                      bool(use_relu))
+    h, c = K.sru_fwd_scan_plain(torch.tensor(u), torch.tensor(bias4),
+                                torch.tensor(lengths), reverse, use_relu)
+    _close("h", h.numpy(), np.asarray(h_ref), 2e-5)
+    _close("c", c.numpy(), np.asarray(c_ref), 2e-5)
+    for b, n in enumerate(lengths):
+        assert (h[n:, b] == 0).all()
+        if reverse:
+            assert (c[n:, b] == 0).all()
+        else:
+            assert (c[n:, b] == c[n - 1, b]).all()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("use_relu", [0, 1])
 def test_plain_backward_is_autograd_of_plain_forward(reverse, use_relu):
     """The hand-written backward scan (what sru_bwd_scan computes) equals
     autograd through the differentiable plain forward scan; both run in
