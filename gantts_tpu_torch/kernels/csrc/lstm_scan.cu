@@ -29,44 +29,78 @@
 // both directions), so a step's latency, not bandwidth or FLOPs, bounds the
 // kernel: T x (one exchange between SMs, one barrier, the cell).
 //
-// The backward, bf16 with H = 256 or 512 and B <= 24 (the training steps'
+// Both kernels, bf16 with H = 256 or 512 and B <= 24 (the training steps'
 // shapes): one thread-block cluster of 16 blocks (the non-portable size)
 // per direction, each block owning U = H / 16 hidden units, 512 threads.
 // The hardware schedules a cluster's blocks together, so neither a
 // cooperative launch nor a global barrier counter is needed, and a block
 // can copy into the shared memory of the others (distributed shared
-// memory).  Per block:
+// memory).  W_hh never leaves registers: each block's slice of the product
+// is held in the layout of mma.sync's A fragments, which wgmma also takes,
+// for the whole launch (64 registers a thread at H=512).  Each step's exchange is one bulk copy (cp.async.bulk,
+// shared::cta to shared::cluster) from every block into every other, whose
+// bytes complete a transaction barrier (mbarrier) in the receiving block;
+// each block waits on its own barrier of the step's parity, so no step
+// holds a cluster-wide barrier.  Each thread's cell takes two adjacent
+// units of one row b, with its carries in registers, and its inputs for
+// the next step, which do not depend on the recurrence, are copied by
+// cp.async into slots only it reads while the current step runs; the
+// outputs' stores are never waited for.
 //
-//   * W_hh never leaves registers: the block's product takes its own 4U
-//     gate columns for all H rows, held as mma.sync A fragments for the
-//     whole launch, warp w the U rows that block w owns (64 registers a
-//     thread at H=512).
-//   * Per step, each thread's cell (two adjacent units of one row b) forms
-//     dgates_t from the carried dh and dc and the stored g4, c and gy,
-//     stores it to dxp and, as bf16, to shared memory.  After one block
-//     barrier, warp w forms the partial dh^T = W_hh[wU:(w+1)U, block's
-//     columns] dgates_t^T (m16n8k16, f32 accumulation, B padded to 24) and
-//     sends it to block w with one bulk copy (cp.async.bulk, shared::cta to
-//     shared::cluster), whose bytes complete a transaction barrier
-//     (mbarrier) in block w: a reduce-scatter, (B rounded up to 4) x (U+2)
-//     f32 to each block, no cluster-wide barrier.  Each block waits on its
-//     barrier of the step's parity and sums the 16 slices in the order of
-//     their source, so the result does not depend on timing.
-//   * The next step's g4, c_t, c_{t-1} and gy, which do not depend on the
-//     recurrence, are copied by cp.async into the slots of the thread that
-//     reads them while the current step runs; the dxp stores are never
-//     waited for.  The receive slots, dgates_t and the input slots are
-//     double-buffered by step parity: 206 KB of the 227 KB at H=512.
+// The forward (`lstm_fwd_cluster_kernel`), per block and step:
+//
+//   * The product gates^T = W^T h_{t-1}^T for the block's M = 4U gate
+//     columns [i|f|g|o] (f32 accumulation, B padded to 24 rows, K = H) on
+//     wgmma: each warpgroup runs one m64 x n24 tile over one split of K (2
+//     m-tiles x 2 splits at H=512, 1 x 4 at H=256), A (W) from its warps'
+//     registers, B (h) from the receive slots, which hold h in wgmma's
+//     K-major layout without swizzle.  The same product on mma.sync, each
+//     warp loading its own B fragments, took about 1.4 us a step: the 8
+//     warps of a split read the same h from shared memory, 196 KB a step
+//     per SM; a warpgroup reads it once.  The splits' partial sums meet in
+//     shared memory after one block barrier and are added in the order of
+//     their K ranges, so the result does not depend on timing.  A split
+//     that gave each warp one source block's K range for all m-tiles, so
+//     it could start as soon as that slice landed, would need 96
+//     accumulators a thread beside W's 64 (128 is the limit at 512
+//     threads).
+//   * The cell: pre = (xp + b) + the sum, i, f, o sigmoid and g tanh (from
+//     __expf and __fdividef, about 0.4 us a step less than libm's expf and
+//     tanhf, within 1e-6 of them), c = f c + i g, h = o tanh(c), both
+//     carries frozen past the row's length; y (zero there), c and the four
+//     gates straight to global, and the carried h, rounded to bf16 as the
+//     product takes it, into the block's send slice.
+//   * After a second block barrier, warp w sends the slice's row groups
+//     that hold the B real rows (1.5 KB at B=20, H=512) to block w's
+//     receive slot for this block: an all-gather, about half the
+//     backward's bytes.  Rows past B are zeroed once.
+//   * What stays on the serial chain: the barrier wait, the product, two
+//     block barriers, the cell, the bulk copies' flight.  On an H100 at
+//     B=20, H=512 a step takes about 2.6 us with one or two directions.
+//
+// The backward (`lstm_bwd_cluster_kernel`), per block and step:
+//
+//   * Each thread's cell forms dgates_t from the carried dh and dc and the
+//     stored g4, c and gy, stores it to dxp and, as bf16, to shared memory.
+//     After one block barrier, warp w forms the partial dh^T = W_hh[wU:(w+
+//     1)U, block's columns] dgates_t^T (its A fragments are the U rows block
+//     w owns) and sends it to block w: a reduce-scatter, (B rounded up to 4)
+//     x (U+2) f32 to each block.  Each block sums the 16 slices in the
+//     order of their source.
+//   * The receive slots, dgates_t and the input slots are double-buffered
+//     by step parity: 206 KB of the 227 KB at H=512.
 //   * What stays on the serial chain: the barrier wait, the sums, the cell,
 //     one block barrier, the product (K/16 dependent mma steps), the bulk
 //     copies' flight.  On an H100 at B=20, H=512 a step takes about 3.5 us
 //     (2.2 us at B=1); a cluster barrier per step with per-thread remote
 //     stores instead took 7.1 us, mostly the stores and the barrier's
-//     release of every earlier store (dxp included).
+//     release of every earlier store (dxp included).  The exchange alone,
+//     16 slices of 2.7 KB into each block, takes about 1.55 us: distributed
+//     shared memory's bandwidth, about 34 GB/s into an SM.
 //
-// Every other backward shape (f32 I/O, whose W_hh slices would not fit in
-// registers; H other than 256 or 512; B above 24) and the forward take the
-// cooperative design, chosen by shape in the launcher: a persistent kernel.
+// Every other shape (f32 I/O, whose W_hh slices would not fit in
+// registers; H other than 256 or 512; B above 24) takes the cooperative
+// design, chosen by shape in the launcher: a persistent kernel.
 // Each direction's hidden units are spread over up to 64 blocks (8 units
 // each at H=512).  A block keeps its slice of W_hh in shared memory for the
 // whole launch (the columns of its units' four gates in the forward, the
@@ -89,11 +123,11 @@
 // they are staged as f32 in chunks and each of 256 threads accumulates up
 // to 32 rows for one column over a strided slice of k with FMA.  Partial
 // sums are reduced through shared memory.  On an H100 at B=20, H=512, bf16,
-// with both directions, a step takes about 7.2 us forward and 7.7 us in
+// with both directions, a step takes about 7.3 us forward and 7.7 us in
 // this design's backward: mostly latency, the barrier (about 1.2 us: store,
 // fence, atomic, spin), the staging's round trip through L2 (each of a
-// direction's 64 blocks reads all 80 KB of dgates_t in the backward) and
-// the cells' scattered loads.
+// direction's 64 blocks reads all of h_{t-1} or dgates_t every step) and
+// the cells' scattered loads issued after the product.
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns a cudaError_t code.
@@ -578,7 +612,7 @@ struct ClusterShape {
 // send slices, dgates_t of both parities, and each thread's cell inputs of
 // both parities (c_t, c_{t-1} as float2; g4's four gates and gy as bf16x2).
 template <int U>
-constexpr size_t cluster_smem_bytes() {
+constexpr size_t bwd_cluster_smem_bytes() {
   using S = ClusterShape<U>;
   return sizeof(float) * 3 * kCBlocks * S::Slot +
          sizeof(__nv_bfloat16) * 2 * kCMaxB * S::BStride +
@@ -595,6 +629,8 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
                : "memory");
 }
 
+// One arrival on the barrier's current phase, which then also waits for
+// ``bytes`` of transactions.
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
@@ -883,20 +919,306 @@ lstm_bwd_cluster_kernel(const __nv_bfloat16* __restrict__ whh,
   }
 }
 
-// The launch configuration of the cluster kernel, after its attributes:
-// the shared memory beyond 48 KB and the non-portable cluster size (16).
+// ---------------------------------------------------------------------------
+// Forward, one thread-block cluster per direction (see the note at the top
+// of the file): bf16, H = 16 U, B <= kCMaxB.  Layouts as the cooperative
+// forward's, without the hx scratch and the barrier counters.
+// ---------------------------------------------------------------------------
+
+// Per block of U hidden units: M = 4U gate columns in MTiles m16 tiles,
+// one to a warp, so the 4 warps of a warpgroup hold an m64 tile; the 16
+// warps are MTiles x Splits, the Splits warps of an m-tile each taking H /
+// Splits of K (KSteps k16 steps).  An h slice is wgmma's K-major operand
+// without swizzle: core matrices of 8 rows x 8 bf16 (128 contiguous
+// bytes), [row group][K chunk], kCMaxB rows of U.  A partial sum is
+// kCMaxB rows of M + 4 f32 (the fragment stores hit 32 banks).
 template <int U>
-cudaError_t cluster_config(int ndir, cudaStream_t stream,
-                           cudaLaunchConfig_t* cfg,
+struct FwdClusterShape {
+  static constexpr int H = kCBlocks * U, M = 4 * U, MTiles = M / 16;
+  static constexpr int Splits = kCThreads / 32 / MTiles;
+  static constexpr int KSteps = H / Splits / 16;
+  static constexpr int Chunks = U / 8, Slice = kCMaxB * U;
+  static constexpr int PRow = M + 4;
+};
+
+// Where element (row n, unit k) of an h slice lies, in bf16.
+template <int U>
+__device__ __forceinline__ int slice_at(int n, int k) {
+  return ((n / 8 * (U / 8) + k / 8) * 8 + n % 8) * 8 + k % 8;
+}
+
+// A wgmma descriptor of a K-major operand without swizzle at shared
+// address ``addr``: core matrices ``kstep`` bytes apart along K and
+// ``nstep`` bytes apart along N.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, uint32_t kstep,
+                                                uint32_t nstep) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(kstep >> 4) << 16) |
+         ((uint64_t)(nstep >> 4) << 32);
+}
+
+// d (m64 x n24, f32) += a (m64 x k16 bf16, this warp's m16 rows in
+// registers as mma.sync's A fragment) x b (k16 x n24, from ``desc``).
+__device__ __forceinline__ void wgmma_n24(float (&d)[12],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// sigmoid and tanh from __expf and __fdividef, within about 1e-6 of libm's
+// where a bf16 rounding is 4e-3.
+__device__ __forceinline__ float fast_sigmoid(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
+__device__ __forceinline__ float fast_tanh(float x) {
+  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * x));
+}
+
+// Dynamic shared memory: the receive slots of both step parities (16
+// slices each), the send slice, the Splits partial sums, each thread's
+// xp inputs of both parities (four gates as bf16x2) and its bias (four
+// gates as float2: off the registers, which W's fragments nearly fill).
+// The slots come first: wgmma's operands lie on 16 bytes.
+template <int U>
+constexpr size_t fwd_cluster_smem_bytes() {
+  using S = FwdClusterShape<U>;
+  return sizeof(__nv_bfloat16) * (2 * kCBlocks + 1) * S::Slice +
+         sizeof(float) * S::Splits * kCMaxB * S::PRow +
+         sizeof(uint32_t) * 2 * 4 * kCThreads +
+         sizeof(float2) * 4 * kCThreads;
+}
+
+__device__ __forceinline__ uint32_t ldg_pair(const __nv_bfloat16* lo,
+                                             const __nv_bfloat16* hi) {
+  return (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(lo)) |
+         ((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(hi)) << 16);
+}
+
+template <int U>
+__global__ void __launch_bounds__(kCThreads, 1)
+lstm_fwd_cluster_kernel(const __nv_bfloat16* __restrict__ xp,
+                        const __nv_bfloat16* __restrict__ whh,
+                        const float* __restrict__ bias,
+                        const int* __restrict__ lengths,
+                        __nv_bfloat16* __restrict__ y, float* __restrict__ c,
+                        __nv_bfloat16* __restrict__ g4, int nt, int B,
+                        int ndir, int rev_mask) {
+  using S = FwdClusterShape<U>;
+  constexpr int H = S::H;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[2];  // a parity's slices arrived
+  // recv [2][16 sources][Slice], then send [Slice]
+  __nv_bfloat16* recv = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* send = recv + 2 * kCBlocks * S::Slice;
+  float* part = reinterpret_cast<float*>(send + S::Slice);  // [Splits][B][PRow]
+  uint32_t* in_xp =  // [2][4][kCThreads]
+      reinterpret_cast<uint32_t*>(part + S::Splits * kCMaxB * S::PRow);
+  float2* in_b = reinterpret_cast<float2*>(in_xp + 2 * 4 * kCThreads);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rank = (int)cluster.block_rank();
+  const int d = blockIdx.x / kCBlocks, j0 = rank * U;
+  const int rev = (rev_mask >> d) & 1;
+  const size_t G = (size_t)ndir * 4 * H, Y = (size_t)ndir * H;
+  // only the row groups that hold the B real rows are sent: 512 or 256
+  // bytes a group of 8
+  const uint32_t slice_bytes = (B + 7) / 8 * 8 * U * sizeof(__nv_bfloat16);
+
+  // Warp (mt, split)'s A fragments of gates^T = W^T h^T for the whole
+  // launch: rows m = mt 16 + [0, 16) of this block's gate columns (gate
+  // m / U, unit j0 + m % U; a tile lies in one gate), columns the hidden
+  // units k of the split's K range, which blocks split Q .. split Q + Q - 1
+  // own (Q = 16 / Splits).  Warpgroup mt / 4 + split MTiles / 4 runs the
+  // m64 tile of its four warps over that K range.
+  const int mt = warp % S::MTiles, split = warp / S::MTiles;
+  const int kbase = split * (H / S::Splits);
+  uint32_t a[S::KSteps][4];
+  {
+    const __nv_bfloat16* w = whh + (size_t)d * H * 4 * H;
+    const int m0 = mt * 16 + g, m8 = m0 + 8;
+    const __nv_bfloat16* w0 = w + (m0 / U) * H + j0 + m0 % U;
+    const __nv_bfloat16* w8 = w + (m8 / U) * H + j0 + m8 % U;
+#pragma unroll
+    for (int ks = 0; ks < S::KSteps; ++ks) {
+      const size_t k = (size_t)(kbase + ks * 16 + 2 * t4) * 4 * H;
+      constexpr size_t r1 = 4 * H, r8 = 8 * 4 * H;
+      a[ks][0] = ldg_pair(w0 + k, w0 + k + r1);
+      a[ks][1] = ldg_pair(w8 + k, w8 + k + r1);
+      a[ks][2] = ldg_pair(w0 + k + r8, w0 + k + r8 + r1);
+      a[ks][3] = ldg_pair(w8 + k + r8, w8 + k + r8 + r1);
+    }
+  }
+
+  // This thread's cell: units jj and jj + 1 of row b, its carries and
+  // length in registers, its bias in its slots of in_b.
+  const int b = tid / (U / 2), jj = 2 * (tid % (U / 2)), j = j0 + jj;
+  const bool cell = b < B;
+  const int len = cell ? lengths[b] : 0;
+  float h[2] = {0.f, 0.f}, cc[2] = {0.f, 0.f};
+  if (cell)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      in_b[q * kCThreads + tid] = *reinterpret_cast<const float2*>(
+          bias + (size_t)d * 4 * H + q * H + j);
+
+  // Stage this thread's xp of traversal step s (it does not depend on the
+  // recurrence) with cp.async into its slots of parity p.
+  auto prefetch = [&](int s, int p) {
+    if (!cell) return;
+    const int t = rev ? nt - 1 - s : s;
+    const __nv_bfloat16* xr =
+        xp + ((size_t)t * B + b) * G + (size_t)d * 4 * H + j;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      cp_async_small<4>(in_xp + (p * 4 + q) * kCThreads + tid,
+                        xr + (size_t)q * H);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  if (tid == 0) {
+    mbar_init(smem_u32(&full[0]), 1);
+    mbar_init(smem_u32(&full[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // armed for the first slices of each parity: one from every block
+    mbar_expect_tx(smem_u32(&full[0]), kCBlocks * slice_bytes);
+    mbar_expect_tx(smem_u32(&full[1]), kCBlocks * slice_bytes);
+  }
+  for (int i = tid; i < (2 * kCBlocks + 1) * S::Slice; i += kCThreads)
+    recv[i] = __float2bfloat16(0.f);  // rows past B stay zero
+  // the zeros are written before any peer's copy lands beside them
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  prefetch(0, 0);
+  // every block's barriers are set up before any slice is sent
+  cluster.sync();
+
+  for (int s = 0; s < nt; ++s) {
+    const int t = rev ? nt - 1 - s : s, p = s & 1;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");  // step s's xp
+    if (s + 1 < nt) prefetch(s + 1, p ^ 1);
+    if (s > 0) {
+      // h_{s-1} from all 16 blocks, in the slots of parity p ^ 1
+      const uint32_t bar = smem_u32(&full[p ^ 1]);
+      mbar_wait(bar, ((s - 1) >> 1) & 1);
+      // Re-armed for h_{s+1}.  No block sends it before its product of
+      // step s + 1, which needs this block's h_s, sent below.
+      if (tid == 0) mbar_expect_tx(bar, kCBlocks * slice_bytes);
+      const uint32_t hs = smem_u32(recv + (p ^ 1) * kCBlocks * S::Slice);
+      float acc[12];
+#pragma unroll
+      for (int i = 0; i < 12; ++i) acc[i] = 0.f;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int ks = 0; ks < S::KSteps; ++ks) {
+        const int k = kbase + ks * 16;  // within the slice of block k / U
+        wgmma_n24(acc, a[ks],
+                  kmajor_desc(hs + 2 * slice_at<U>(0, k % U) +
+                                  2 * (k / U) * S::Slice,
+                              128, S::Chunks * 128));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      // the split's partial sum, [row][gate column]
+      float* pp = part + split * kCMaxB * S::PRow + mt * 16 + g;
+#pragma unroll
+      for (int n = 0; n < 3; ++n) {
+        const int r = n * 8 + 2 * t4;
+        pp[r * S::PRow] = acc[4 * n];
+        pp[(r + 1) * S::PRow] = acc[4 * n + 1];
+        pp[r * S::PRow + 8] = acc[4 * n + 2];
+        pp[(r + 1) * S::PRow + 8] = acc[4 * n + 3];
+      }
+    }
+    // the copies of step s - 1 have read the send slice
+    if (lane == 0)
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    __syncthreads();  // the partial sums are in; the send slice is free
+
+    if (cell) {
+      // pre = (xp + b) + h_{t-1} W_hh, the partial sums added in the order
+      // of their K ranges, so the result does not depend on timing
+      float pre[4][2];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 x = bf2(in_xp[(p * 4 + q) * kCThreads + tid]);
+        const float2 bq = in_b[q * kCThreads + tid];
+        float2 sum = make_float2(0.f, 0.f);
+        if (s > 0) {
+#pragma unroll
+          for (int sp = 0; sp < S::Splits; ++sp) {
+            const float2 v = *reinterpret_cast<const float2*>(
+                part + (sp * kCMaxB + b) * S::PRow + q * U + jj);
+            sum.x += v.x;
+            sum.y += v.y;
+          }
+        }
+        pre[q][0] = (x.x + bq.x) + sum.x;
+        pre[q][1] = (x.y + bq.y) + sum.y;
+      }
+      const float m = t < len ? 1.f : 0.f;
+      float act[4][2], yv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float ig = fast_sigmoid(pre[0][e]);
+        const float fg = fast_sigmoid(pre[1][e]);
+        const float gg = fast_tanh(pre[2][e]), og = fast_sigmoid(pre[3][e]);
+        const float c_new = fg * cc[e] + ig * gg;
+        const float h_new = og * fast_tanh(c_new);
+        h[e] = m * h_new + (1.f - m) * h[e];
+        cc[e] = m * c_new + (1.f - m) * cc[e];
+        yv[e] = h_new * m;
+        act[0][e] = ig, act[1][e] = fg, act[2][e] = gg, act[3][e] = og;
+      }
+      const size_t row = (size_t)t * B + b;
+      const size_t o = row * Y + (size_t)d * H + j;
+      *reinterpret_cast<__nv_bfloat162*>(y + o) =
+          __floats2bfloat162_rn(yv[0], yv[1]);
+      *reinterpret_cast<float2*>(c + o) = make_float2(cc[0], cc[1]);
+      __nv_bfloat16* gr = g4 + row * G + (size_t)d * 4 * H + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        *reinterpret_cast<__nv_bfloat162*>(gr + (size_t)q * H) =
+            __floats2bfloat162_rn(act[q][0], act[q][1]);
+      // the carried h as the next product takes it, h.to(bf16)
+      *reinterpret_cast<__nv_bfloat162*>(send + slice_at<U>(b, jj)) =
+          __floats2bfloat162_rn(h[0], h[1]);
+      // the slice, written by this proxy, is read by the copy engine's
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    if (s + 1 == nt) break;
+    __syncthreads();  // h_s is in the send slice
+    if (lane == 0) {  // warp w sends it to block w, slot (parity p, rank)
+      const uint32_t dst = smem_u32(recv + (p * kCBlocks + rank) * S::Slice);
+      bulk_to_peer(peer_u32(dst, warp), smem_u32(send), slice_bytes,
+                   peer_u32(smem_u32(&full[p]), warp));
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+  }
+  // a block leaves only once its copies have landed
+  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The launch configuration of a cluster kernel, after its attributes: the
+// shared memory beyond 48 KB and the non-portable cluster size (16).
+template <typename Kernel>
+cudaError_t cluster_config(Kernel kern, size_t smem, int ndir,
+                           cudaStream_t stream, cudaLaunchConfig_t* cfg,
                            cudaLaunchAttribute* attr) {
-  constexpr size_t smem = cluster_smem_bytes<U>();
   cudaError_t e = cudaFuncSetAttribute(
-      lstm_bwd_cluster_kernel<U>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(lstm_bwd_cluster_kernel<U>,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1);
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return e;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3((unsigned)(ndir * kCBlocks));
@@ -912,30 +1234,49 @@ cudaError_t cluster_config(int ndir, cudaStream_t stream,
   return cudaSuccess;
 }
 
+// One launch of a cluster kernel, ``ndir`` clusters of 16 blocks.
+template <typename... P, typename... A>
+cudaError_t cluster_launch(void (*kern)(P...), size_t smem, int ndir,
+                           cudaStream_t stream, A... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = cluster_config(kern, smem, ndir, stream, &cfg, attr);
+  if (e != cudaSuccess) return e;
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// How many clusters of ``kern`` can be resident at once.
+template <typename Kernel>
+cudaError_t cluster_occupancy(Kernel kern, size_t smem, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = cluster_config(kern, smem, 1, 0, &cfg, attr);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveClusters(clusters, kern, &cfg);
+}
+
 template <int U>
 cudaError_t cluster_bwd_launch(const __nv_bfloat16* whh, const int* lengths,
                                const float* c, const __nv_bfloat16* g4,
                                const __nv_bfloat16* gy, __nv_bfloat16* dxp,
                                float* dbp, int nt, int B, int ndir,
                                int rev_mask, cudaStream_t stream) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  cudaError_t e = cluster_config<U>(ndir, stream, &cfg, attr);
-  if (e != cudaSuccess) return e;
-  e = cudaLaunchKernelEx(&cfg, lstm_bwd_cluster_kernel<U>, whh, lengths, c,
-                         g4, gy, dxp, dbp, nt, B, ndir, rev_mask);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return cluster_launch(lstm_bwd_cluster_kernel<U>,
+                        bwd_cluster_smem_bytes<U>(), ndir, stream, whh,
+                        lengths, c, g4, gy, dxp, dbp, nt, B, ndir, rev_mask);
 }
 
 template <int U>
-cudaError_t cluster_occupancy(int* clusters) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  cudaError_t e = cluster_config<U>(1, 0, &cfg, attr);
-  if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveClusters(clusters, lstm_bwd_cluster_kernel<U>,
-                                        &cfg);
+cudaError_t cluster_fwd_launch(const __nv_bfloat16* xp,
+                               const __nv_bfloat16* whh, const float* bias,
+                               const int* lengths, __nv_bfloat16* y, float* c,
+                               __nv_bfloat16* g4, int nt, int B, int ndir,
+                               int rev_mask, cudaStream_t stream) {
+  return cluster_launch(lstm_fwd_cluster_kernel<U>,
+                        fwd_cluster_smem_bytes<U>(), ndir, stream, xp, whh,
+                        bias, lengths, y, c, g4, nt, B, ndir, rev_mask);
 }
 
 // Hidden units per block and blocks per direction.
@@ -1012,12 +1353,51 @@ const char* lstm_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// The forward's and the backward's design at a shape: 1 the cluster
+// kernel, 0 the cooperative one (which alone reads ``hx`` and ``bar``).
+int lstm_fwd_design(int B, int H, int bf16) {
+  return cluster_takes(B, H, bf16) ? 1 : 0;
+}
+
+int lstm_bwd_design(int B, int H, int bf16) {
+  return cluster_takes(B, H, bf16) ? 1 : 0;
+}
+
+// How many clusters of the forward's or the backward's cluster kernel at
+// this H (256 or 512) can be resident at once on the current device, into
+// ``clusters``.
+int lstm_fwd_cluster_occupancy(int H, int* clusters) {
+  if (H == 512)
+    return (int)cluster_occupancy(lstm_fwd_cluster_kernel<32>,
+                                  fwd_cluster_smem_bytes<32>(), clusters);
+  if (H == 256)
+    return (int)cluster_occupancy(lstm_fwd_cluster_kernel<16>,
+                                  fwd_cluster_smem_bytes<16>(), clusters);
+  return (int)cudaErrorInvalidValue;
+}
+
+int lstm_bwd_cluster_occupancy(int H, int* clusters) {
+  if (H == 512)
+    return (int)cluster_occupancy(lstm_bwd_cluster_kernel<32>,
+                                  bwd_cluster_smem_bytes<32>(), clusters);
+  if (H == 256)
+    return (int)cluster_occupancy(lstm_bwd_cluster_kernel<16>,
+                                  bwd_cluster_smem_bytes<16>(), clusters);
+  return (int)cudaErrorInvalidValue;
+}
+
 int lstm_fwd_scan(const void* xp, const void* whh, const float* bias,
                   const int* lengths, void* y, float* c, void* g4, void* hx,
                   unsigned* bar, int T, int B, int H, int ndir, int rev_mask,
                   int bf16, void* stream) {
   if (T == 0 || B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (cluster_takes(B, H, bf16)) {
+    typedef const __nv_bfloat16* P;
+    return (int)(H == 512 ? cluster_fwd_launch<32> : cluster_fwd_launch<16>)(
+        (P)xp, (P)whh, bias, lengths, (__nv_bfloat16*)y, c,
+        (__nv_bfloat16*)g4, T, B, ndir, rev_mask, s);
+  }
   if (bf16)
     return fwd_launch<__nv_bfloat16>(
         (const __nv_bfloat16*)xp, (const __nv_bfloat16*)whh, bias, lengths,
@@ -1026,20 +1406,6 @@ int lstm_fwd_scan(const void* xp, const void* whh, const float* bias,
   return fwd_launch<float>((const float*)xp, (const float*)whh, bias, lengths,
                            (float*)y, c, (float*)g4, (float*)hx, bar, T, B, H,
                            ndir, rev_mask, s);
-}
-
-// The backward's design at a shape: 1 the cluster kernel, 0 the
-// cooperative one (which alone reads ``bar``).
-int lstm_bwd_design(int B, int H, int bf16) {
-  return cluster_takes(B, H, bf16) ? 1 : 0;
-}
-
-// How many clusters of the backward's cluster kernel at this H (256 or
-// 512) can be resident at once on the current device, into ``clusters``.
-int lstm_bwd_cluster_occupancy(int H, int* clusters) {
-  if (H == 512) return (int)cluster_occupancy<32>(clusters);
-  if (H == 256) return (int)cluster_occupancy<16>(clusters);
-  return (int)cudaErrorInvalidValue;
 }
 
 int lstm_bwd_scan(const void* whh, const int* lengths, const float* c,

@@ -12,7 +12,11 @@ them on the card and what their design does about it):
   ``linear_recurrence_bwd``  ghat_t = g_t + f_{t+1} ghat_{t+1},
                              df_t = ghat_t c_{t-1}, db_t = ghat_t
                              (replaces ``_bwd_kernel`` and the shifted
-                             copies its caller builds).
+                             copies its caller builds), T split into
+                             32-step chunks joined through their carries,
+                             so it agrees with its plain version to
+                             rounding, not bit for bit; T up to
+                             ``MAX_BWD_STEPS``.
 
 Each wrapper takes the plain version when, and only when, its tensors lie on
 the CPU.  A CUDA tensor goes to the kernel; anything the kernel does not take
@@ -42,6 +46,7 @@ from gantts_tpu_torch.kernels.sru_scan import (
 launch_counts.update(linear_recurrence_fwd=0, linear_recurrence_bwd=0)
 
 F32 = (torch.float32,)
+MAX_BWD_STEPS = 8192  # 32-step chunks, all of a lane's in one block
 
 
 # ---------------------------------------------------------------------------
@@ -129,6 +134,8 @@ def linear_recurrence_bwd(g, f, c):
         return linear_recurrence_bwd_plain(g, f, c)
     name = "linear_recurrence_bwd"
     dev, (T, B, H) = _check(name, f, ("g", g), ("c", c))
+    if T > MAX_BWD_STEPS:
+        raise ValueError(f"{name}: T={T} steps, at most {MAX_BWD_STEPS}")
     df, db = torch.empty_like(f), torch.empty_like(f)
     _launched(name, _lib().linear_recurrence_bwd(
         g.data_ptr(), f.data_ptr(), c.data_ptr(), df.data_ptr(),

@@ -14,15 +14,17 @@ them on the card and what their design does about it):
                      the bias gradient (replaces ``_lstm_bwd_kernel`` and
                      ``_bilstm_bwd_kernel``).
 
-Two designs, chosen by shape in the launcher.  The forward, and the
-backward in f32 or at shapes the cluster layout does not divide, are
-persistent cooperative launches: a direction's blocks exchange each step's
-activations through global memory and meet at a grid barrier, so every
-block must be resident at once, or the launch fails and the wrapper raises.
-The backward in bf16 with H of 256 or 512 and B up to 24 (the training
-steps' shapes) runs one thread-block cluster per direction, exchanging
-partial products through distributed shared memory (``bwd_design`` says
-which a shape takes).
+Two designs for each, chosen by shape in the launcher.  In bf16 with H of
+256 or 512 and B up to 24 (the training steps' shapes) each kernel runs one
+thread-block cluster per direction, with its block's slice of W_hh in
+registers: the forward all-gathers each step's h_t, the backward
+reduce-scatters its partial products, through distributed shared memory
+(``fwd_design`` and ``bwd_design`` say which a shape takes).  Every other
+shape (f32 I/O, other H, larger B) takes a persistent cooperative launch: a
+direction's blocks exchange each step's activations through global memory
+and meet at a grid barrier, so every block must be resident at once, or the
+launch fails and the wrapper raises.  A cluster launch that fails raises
+too; nothing falls back to the other design.
 
 The input projection, which the TPU kernels run inside their bodies, is the
 port's ``sru_proj_gemm`` (the counterpart of ``_proj_u``), one launch over
@@ -63,7 +65,7 @@ from gantts_tpu_torch.kernels.sru_scan import (
 )
 
 launch_counts.update(lstm_fwd_scan=0, lstm_bwd_scan=0)
-BWD_DESIGNS = ("cooperative", "cluster")
+DESIGNS = ("cooperative", "cluster")
 
 
 # ---------------------------------------------------------------------------
@@ -167,31 +169,47 @@ def _lib():
     lib.lstm_error_string.restype = ctypes.c_char_p
     lib.lstm_fwd_scan.argtypes = [P] * 9 + [I] * 6 + [P]
     lib.lstm_bwd_scan.argtypes = [P] * 8 + [I] * 6 + [P]
-    lib.lstm_bwd_design.argtypes = [I, I, I]
-    lib.lstm_bwd_cluster_occupancy.argtypes = [I, P]
-    for fn in (lib.lstm_fwd_scan, lib.lstm_bwd_scan, lib.lstm_bwd_design,
+    for way in ("fwd", "bwd"):
+        getattr(lib, f"lstm_{way}_design").argtypes = [I, I, I]
+        getattr(lib, f"lstm_{way}_cluster_occupancy").argtypes = [I, P]
+    for fn in (lib.lstm_fwd_scan, lib.lstm_bwd_scan, lib.lstm_fwd_design,
+               lib.lstm_bwd_design, lib.lstm_fwd_cluster_occupancy,
                lib.lstm_bwd_cluster_occupancy):
         fn.restype = I
     return lib
 
 
-def bwd_design(B, H, dtype):
-    """The design ``lstm_bwd_scan``'s launcher takes at this shape:
+def fwd_design(B, H, dtype):
+    """The design ``lstm_fwd_scan``'s launcher takes at this shape:
     "cluster" (bf16, H of 256 or 512, B up to 24) or "cooperative"."""
-    return BWD_DESIGNS[_lib().lstm_bwd_design(
-        B, H, int(dtype == torch.bfloat16))]
+    return DESIGNS[_lib().lstm_fwd_design(B, H, int(dtype == torch.bfloat16))]
+
+
+def bwd_design(B, H, dtype):
+    """The design ``lstm_bwd_scan``'s launcher takes at this shape, as
+    ``fwd_design``."""
+    return DESIGNS[_lib().lstm_bwd_design(B, H, int(dtype == torch.bfloat16))]
+
+
+def _cluster_occupancy(name, H):
+    n = ctypes.c_int(0)
+    code = getattr(_lib(), name)(H, ctypes.addressof(n))
+    if code != 0:
+        msg = _lib().lstm_error_string(code).decode()
+        raise RuntimeError(f"{name}: {code}: {msg}")
+    return n.value
+
+
+def fwd_cluster_occupancy(H):
+    """How many clusters of the forward's cluster kernel (one per
+    direction) can be resident at once on the current device, at H = 256
+    or 512."""
+    return _cluster_occupancy("lstm_fwd_cluster_occupancy", H)
 
 
 def bwd_cluster_occupancy(H):
-    """How many clusters of the backward's cluster kernel (one per
-    direction) can be resident at once on the current device, at H = 256
-    or 512."""
-    n = ctypes.c_int(0)
-    code = _lib().lstm_bwd_cluster_occupancy(H, ctypes.addressof(n))
-    if code != 0:
-        msg = _lib().lstm_error_string(code).decode()
-        raise RuntimeError(f"lstm_bwd_cluster_occupancy: {code}: {msg}")
-    return n.value
+    """As ``fwd_cluster_occupancy``, for the backward's cluster kernel."""
+    return _cluster_occupancy("lstm_bwd_cluster_occupancy", H)
 
 
 def _launched(name, code):
@@ -211,7 +229,9 @@ def _rev_mask(name, reverse, ndir):
 
 def lstm_fwd_scan(xp, whh, bias, lengths, reverse):
     """(xp, W_hh, bias, lengths, reverse) -> (y, c float32, g4); see the
-    module docstring for the layouts."""
+    module docstring for the layouts.  The launcher picks the design by
+    shape (``fwd_design``); only the cooperative one takes the h scratch
+    and the barrier counters."""
     if _on_cpu(xp, whh, bias, lengths):
         return lstm_fwd_scan_plain(xp, whh, bias, lengths, reverse)
     name, dev = "lstm_fwd_scan", xp.device
@@ -225,12 +245,15 @@ def lstm_fwd_scan(xp, whh, bias, lengths, reverse):
     y = torch.empty((T, B, ndir * H), dtype=xp.dtype, device=dev)
     c = torch.empty((T, B, ndir * H), dtype=torch.float32, device=dev)
     g4 = torch.empty((T, B, ndir * 4 * H), dtype=xp.dtype, device=dev)
-    hx = torch.empty((2, ndir, B, H), dtype=xp.dtype, device=dev)
-    bar = torch.zeros(ndir, dtype=torch.int32, device=dev)
+    hx = bar = None
+    if fwd_design(B, H, xp.dtype) == "cooperative":
+        hx = torch.empty((2, ndir, B, H), dtype=xp.dtype, device=dev)
+        bar = torch.zeros(ndir, dtype=torch.int32, device=dev)
     _launched(name, _lib().lstm_fwd_scan(
         xp.data_ptr(), whh.data_ptr(), bias.data_ptr(), lengths.data_ptr(),
-        y.data_ptr(), c.data_ptr(), g4.data_ptr(), hx.data_ptr(),
-        bar.data_ptr(), T, B, H, ndir, mask,
+        y.data_ptr(), c.data_ptr(), g4.data_ptr(),
+        None if hx is None else hx.data_ptr(),
+        None if bar is None else bar.data_ptr(), T, B, H, ndir, mask,
         int(xp.dtype == torch.bfloat16), _stream(dev)))
     return y, c, g4
 

@@ -302,18 +302,24 @@ def test_lstm_kernels_match_plain_versions(cuda, dt, reverse, Tn, Bn, Hn):
     assert L.launch_counts["lstm_bwd_scan"] == 1
 
 
-def _traced(fn):
+def _traced(fn, tries=5):
     """fn()'s result and the names of the device kernels it ran, from
-    torch.profiler."""
+    torch.profiler.  A session that recorded no device event at all says
+    nothing (on an H100 the profiler has been seen to drop whole sessions
+    while the kernels ran), so fn is traced again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    return out, {e.name for e in prof.events()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
                  if e.device_type == DeviceType.CUDA}
+        if names:
+            break
+    return out, names
 
 
 def _lstm_bwd_case(dev, dt, reverse, Tn, Bn, Hn):
@@ -383,6 +389,69 @@ def test_lstm_bwd_step_shape_takes_the_cluster_kernel(cuda):
     assert L.bwd_design(20, 512, torch.float32) == "cooperative"
     assert L.bwd_cluster_occupancy(512) >= 2
     assert L.bwd_cluster_occupancy(256) >= 2
+
+
+@pytest.mark.parametrize("reverse", LSTM_CASES)
+@pytest.mark.parametrize("Tn,Bn,Hn", [(64, 20, 512), (64, 1, 512),
+                                      (64, 20, 256)])
+def test_lstm_fwd_cluster_kernel(cuda, reverse, Tn, Bn, Hn):
+    """The thread-block-cluster forward (bf16, H of 256 or 512, B up to 24:
+    16 blocks a direction, of 32 or 16 units) against its plain version,
+    one and two directions: y and g4 within one bf16 rounding, c (f32, fed
+    by the bf16-rounded h of earlier steps) within 2e-3 of scale, y exactly
+    0 on padding; then the same inputs again, which must give the same
+    bits: the splits' partial sums are added in a fixed order."""
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    xp, whh, bias, lengths, _ = _lstm_inputs(cuda, torch.bfloat16,
+                                             len(reverse), Tn, Bn, Hn)
+    (y_k, c_k, g4_k), names = _traced(
+        lambda: L.lstm_fwd_scan(xp, whh, bias, lengths, reverse))
+    assert any("lstm_fwd_cluster_kernel" in n for n in names), names
+    y_p, c_p, g4_p = L.lstm_fwd_scan_plain(xp, whh, bias, lengths, reverse)
+    y_2, c_2, g4_2 = L.lstm_fwd_scan(xp, whh, bias, lengths, reverse)
+    torch.cuda.synchronize()
+    assert _rel(y_k, y_p) < TOL[torch.bfloat16]
+    assert _rel(g4_k, g4_p) < TOL[torch.bfloat16]
+    assert _rel(c_k, c_p) < 2e-3
+    pad = torch.arange(Tn, device=cuda)[:, None] >= lengths[None, :]
+    assert (y_k[pad] == 0).all()
+    assert torch.equal(y_2, y_k) and torch.equal(c_2, c_k)
+    assert torch.equal(g4_2, g4_k)
+
+
+@pytest.mark.parametrize("dt,Bn,Hn", [(torch.float32, 20, 512),
+                                      (torch.bfloat16, 3, 9),
+                                      (torch.bfloat16, 25, 256)])
+def test_lstm_fwd_takes_the_cooperative_kernel_by_shape(cuda, dt, Bn, Hn):
+    """f32 I/O, an H the cluster layout does not divide, and a B above its
+    24 rows take the cooperative forward, and it still agrees."""
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    reverse = (False, True)
+    Tn = 21 if Bn == 3 else 40
+    xp, whh, bias, lengths, _ = _lstm_inputs(cuda, dt, 2, Tn, Bn, Hn)
+    assert L.fwd_design(Bn, Hn, dt) == "cooperative"
+    (y_k, c_k, g4_k), names = _traced(
+        lambda: L.lstm_fwd_scan(xp, whh, bias, lengths, reverse))
+    assert any("lstm_fwd_kernel" in n for n in names), names
+    assert not any("lstm_fwd_cluster_kernel" in n for n in names)
+    y_p, c_p, g4_p = L.lstm_fwd_scan_plain(xp, whh, bias, lengths, reverse)
+    torch.cuda.synchronize()
+    assert _rel(y_k, y_p) < TOL[dt] and _rel(g4_k, g4_p) < TOL[dt]
+    assert _rel(c_k, c_p) < (1e-4 if dt == torch.float32 else TOL[dt])
+
+
+def test_lstm_fwd_step_shape_takes_the_cluster_kernel(cuda):
+    """The training steps' bf16 shape (B=20, H=512) takes the forward's
+    cluster kernel too, and two of its 16-block clusters (one per
+    direction) fit on the card at once."""
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    assert L.fwd_design(20, 512, torch.bfloat16) == "cluster"
+    assert L.fwd_design(20, 512, torch.float32) == "cooperative"
+    assert L.fwd_cluster_occupancy(512) >= 2
+    assert L.fwd_cluster_occupancy(256) >= 2
 
 
 @pytest.mark.parametrize("bidirectional", [True, False])
@@ -471,10 +540,12 @@ def test_lstm_forward_matches_cudnn(cuda):
 
 # ---------------------------------------------------------------------------
 # The linear recurrence of the k=3 SRU layer.  The kernels round each product
-# and sum on its own, in the plain version's order, so the two should agree
-# exactly; the limit is 1e-6 of scale.  T=37 is not a multiple of the
-# kernels' unroll and B*H=240 lanes do not fill their last block; the second
-# shape is the step's.
+# and sum on its own, as the plain version does: the forward in its order, so
+# the two agree exactly; the backward from carries composed across 32-step
+# chunks, so to rounding.  The limit is 1e-6 of scale.  T=37 is not a
+# multiple of the forward's unroll or of the backward's chunk and B*H=240
+# lanes do not fill the forward's last block; the second shape is the
+# step's.
 # ---------------------------------------------------------------------------
 
 
@@ -506,6 +577,29 @@ def test_linear_recurrence_kernels_match_plain_versions(cuda, Tn, Bn, Hn):
     assert L.launch_counts["linear_recurrence_bwd"] == 1
 
 
+@pytest.mark.parametrize("Tn", [1, 15, 16, 17, 31, 32, 33, 37, 130, 512])
+@pytest.mark.parametrize("Bn,Hn", [(3, 9), (7, 300), (20, 512)])
+def test_linear_recurrence_bwd_chunked(cuda, Tn, Bn, Hn):
+    """The time-chunked backward against its plain version: T of one step,
+    shorter than one 32-step chunk, one chunk and one step either side, and
+    several chunks (the last partial); 27 lanes (blocks of 16 lanes, the
+    last of 11; at T=512, 16 chunks a block), 2100 and the step's 10,240.
+    The chunk that starts the traversal (t >= T - 32) has carry 0 and is
+    exact; the rest is held to 1e-6 of scale."""
+    L = linear_scan
+    rs = np.random.RandomState(Tn)
+    g, f, c = (torch.tensor(a, dtype=torch.float32, device=cuda) for a in (
+        rs.randn(Tn, Bn, Hn), 1 / (1 + np.exp(-rs.randn(Tn, Bn, Hn))),
+        rs.randn(Tn, Bn, Hn)))
+    df_k, db_k = L.linear_recurrence_bwd(g, f, c)
+    df_p, db_p = L.linear_recurrence_bwd_plain(g, f, c)
+    torch.cuda.synchronize()
+    assert _rel(db_k, db_p) <= 1e-6 and _rel(df_k, df_p) <= 1e-6
+    top = slice(max(0, Tn - 32), Tn)
+    assert torch.equal(db_k[top], db_p[top])
+    assert torch.equal(df_k[top], df_p[top])
+
+
 def test_linear_recurrence_refuses_what_it_does_not_take(cuda):
     L = linear_scan
     f, b, g = _linear_inputs(cuda, T, B, H)
@@ -516,6 +610,9 @@ def test_linear_recurrence_refuses_what_it_does_not_take(cuda):
             L.linear_recurrence_fwd(*args)
     with pytest.raises(ValueError):
         L.linear_recurrence_bwd(g.bfloat16(), f, f)
+    long = torch.zeros((L.MAX_BWD_STEPS + 1, 1, 4), device=cuda)
+    with pytest.raises(ValueError):
+        L.linear_recurrence_bwd(long, long, long)
 
 
 @pytest.mark.parametrize("reverse", [False, True])

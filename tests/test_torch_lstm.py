@@ -186,6 +186,53 @@ def test_plain_backward_is_autograd_of_plain_forward(reverse):
     assert (y[pad] == 0).all() and (dxp[pad] == 0).all()
 
 
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_plain_forward_matches_jax_fwd_call(cd, reverse):
+    """What the forward kernels write and the backward reads, pinned on
+    ``lstm_fwd_scan_plain``: y, c and g4 against the JAX package's
+    ``_fwd_call`` (the Pallas kernel in interpret mode, which exposes c and
+    g4), at shapes that need no tile padding (B=8, H=128, T=32) with
+    lengths of 1 to T.  Limits as the layer tests' forward: 5e-6 of scale
+    in f32, and 1/128 in bf16 (one bf16 rounding of y or g4, and c fed by
+    the bf16-rounded h).  Then, exactly, on the plain version: y = 0 at
+    padded frames; c holds the last valid c through the padding in the
+    forward traversal and is 0 before the first valid frame in the
+    reversed one, where h is 0 too: the gates there are those of xp + b
+    alone."""
+    Tn, Bn, Hn = 32, 8, 128
+    rs = np.random.RandomState(9)
+    xp = np.asarray(jnp.asarray(rs.randn(Tn, Bn, 4 * Hn) * 0.5, cd),
+                    np.float32)
+    whh = (rs.randn(Hn, 4 * Hn) * 0.1).astype(np.float32)
+    bias = (rs.randn(4 * Hn) * 0.1).astype(np.float32)
+    lengths = np.array([32, 1, 5, 16, 17, 31, 9, 2], np.int32)
+    len_bc = np.broadcast_to(lengths[:, None].astype(np.float32), (Bn, Hn))
+    b2d = np.broadcast_to(bias[None, :], (8, 4 * Hn))
+    refs = JL._fwd_call(jnp.asarray(xp, cd), jnp.asarray(whh),
+                        jnp.asarray(b2d), jnp.asarray(len_bc), reverse)
+    dt = L.io_dtype(cd)
+    xp_t = torch.tensor(xp).to(dt)
+    y, c, g4 = L.lstm_fwd_scan_plain(xp_t, torch.tensor(whh).to(dt)[None],
+                                     torch.tensor(bias)[None],
+                                     torch.tensor(lengths), (reverse,))
+    assert y.dtype == dt and g4.dtype == dt and c.dtype == torch.float32
+    tol = TOL[cd][0]
+    for name, got, ref in zip(("y", "c", "g4"), (y, c, g4), refs):
+        _close(name, got.float().numpy(), np.asarray(ref, np.float32), tol)
+    pre = xp_t.float() + torch.tensor(bias)
+    alone = torch.cat([torch.sigmoid(pre[..., :2 * Hn]),
+                       torch.tanh(pre[..., 2 * Hn:3 * Hn]),
+                       torch.sigmoid(pre[..., 3 * Hn:])], -1).to(dt)
+    for b, n in enumerate(lengths):
+        assert (y[n:, b] == 0).all()
+        if reverse:
+            assert (c[n:, b] == 0).all()
+            assert torch.equal(g4[n:, b], alone[n:, b])
+        else:
+            assert (c[n:, b] == c[n - 1, b]).all()
+
+
 def _model_case(jcls, cls, bidirectional, cd, seed):
     kw = dict(in_dim=425, out_dim=187, num_hidden=2, hidden_dim=32,
               bidirectional=bidirectional, compute_dtype=cd)
