@@ -16,7 +16,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      bfloat16; the SRU kernels in both directions with relu, the LSTM
      kernels with two directions and with one, forward and reversed; (3c)
      the linear recurrence of the k=3 SRU layer in float32, with ragged
-     lengths; the bf16 GEMM also at the LSTM path's N = 8H), and time both,
+     lengths; the bf16 GEMM also at the LSTM path's N = 8H; the SRU
+     kernels also at (4d)'s shapes, B=32, T=96, D in {416, 1024}), and
+     time both,
      beside the library call that computes the same function where there
      is one (cuBLAS for the GEMM, at every (K, N) the main paths give it; a
      cuDNN bidirectional LSTM layer for the LSTM scans); the LSTM
@@ -29,18 +31,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      dense MLPG, Adagrad, bfloat16 compute, dropout on) with (4) the 6x512
      bidirectional SRU generator, (4b) the 6x512 bidirectional LSTMRNN
      generator of bench.py's LSTM configuration and (4c) the 6x512
-     unidirectional SRU generator, whose layers 1-5 are k=3 layers;
+     unidirectional SRU generator, whose layers 1-5 are k=3 layers; and
+     (4d) the full-width tts_duration step: the 6x512 bidirectional SRU on
+     416 phone-level inputs and 5 durations, the conditioned 3x256 MLP
+     discriminator, Adam, B=32 phone sequences of 20-80 phones padded to a
+     multiple of 32;
   5. one small float32 step on the card against the same step on the CPU
      (where every kernel wrapper takes its plain version), same weights,
      and the same step on the card with TF32 matmuls as a control that the
      comparison's limit must catch: (5) with an SRU generator, (5b) with an
-     LSTMRNN, (5c) with a unidirectional SRU;
+     LSTMRNN, (5c) with a unidirectional SRU, (5d) with the tts_duration
+     bundle (Adam, no MLPG matrix);
   6. the port's training command line (gantts_tpu_torch.train) on a
      synthetic acoustic corpus written by the port's own code: two epochs
      of (4c)'s configuration, then a second stage resumed from both
-     checkpoints for one more epoch.
+     checkpoints for one more epoch;
+  7. the port's curriculum command (gantts_tpu_torch.curriculum, the
+     counterpart of train_gan.sh) with the full-width tts_duration bundle
+     on a synthetic phone-level corpus: stages 1-3 and 5, one or two epochs
+     each, with each stage's checkpoints, logs and kernel launches checked.
 
-Each of (4), (4b) and (4c) ends with a torch.profiler trace of a few more
+Each of (4), (4b), (4c) and (4d) ends with a torch.profiler trace of a few more
 of its steps, which prints where the device time goes and the idle share
 the trace measured (nothing is written to disk).
 
@@ -70,6 +81,7 @@ import torch
 T, B, H = 512, 20, 512
 LIN_DIM, OUT_DIM = 425, 187
 DISC_IN = 60 - 2 + LIN_DIM
+PHONE_DIM, DUR_DIM, DUR_B = 416, 5, 32  # tts_duration (4d, 7)
 SRU_SOURCE = "gantts_tpu_torch/kernels/csrc/sru_scan.cu"
 LSTM_SOURCE = "gantts_tpu_torch/kernels/csrc/lstm_scan.cu"
 LINEAR_SOURCE = "gantts_tpu_torch/kernels/csrc/linear_scan.cu"
@@ -111,10 +123,10 @@ PRE_RTOL = 3e-6   # losses and metrics taken before any parameter update
 POST_RTOL = 2e-4  # loss_adv and generator: through the just-updated D
 POST_UPDATE = ("loss_adv", "generator")
 # Linear recurrence (3c): the kernels round each product and sum on its
-# own, as the plain version's separate PyTorch ops do.  The forward keeps
-# its order and agrees exactly; the backward starts each 32-step chunk from
-# a carry composed through the chunks' affine maps, so it agrees to
-# rounding (4.1e-7 of scale on an H100, 700 W); limit 1e-6 of scale.
+# own, as the plain version's separate PyTorch ops do, but both start each
+# chunk of steps from a carry composed through the chunks' affine maps, so
+# they agree to rounding (the backward 4.1e-7 of scale on an H100, 700 W);
+# limit 1e-6 of scale.
 LINEAR_TOL = 1e-6
 STEPS, WARMUP = 5, 2  # phase 4: timed steps, after untimed warm-up steps
 SLEEP_CYCLES = 10_000_000  # time_ms's head start, about 5 ms at 1.98 GHz
@@ -295,15 +307,16 @@ def check(kernel, what, dt, D, got, ref, lim, errs):
         errs[kernel] = max(errs[kernel], ab)
 
 
-def phase_kernels(dev, card, errs):
-    """Phase 3: each SRU kernel against its plain version, and both
-    timed."""
+def check_sru_kernels(dev, gen, lengths, Tn, dims, errs, where=""):
+    """The SRU kernels against their plain versions at Tn steps, the batch
+    of ``lengths`` and H, for each input width D in ``dims``, in float32 and
+    bfloat16: sru_proj_gemm's u, both scans in both directions (relu), the
+    dx and dW their du gives, and the autograd layer (fused_sru_proj_layer)
+    against the plain chain fed with the kernel GEMM's own u.  ``where``
+    tags the printed checks with the path whose shapes they are."""
     from gantts_tpu_torch.kernels import sru_scan as K
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    lengths = torch.as_tensor(bench_lengths(np.random.RandomState(0)),
-                              device=dev)
+    Bn = int(lengths.shape[0])
     bound = 1.0 / H ** 0.5
 
     def uniform(*shape):
@@ -311,17 +324,17 @@ def phase_kernels(dev, card, errs):
 
     for dt in (torch.float32, torch.bfloat16):
         tol = TOL[dt]
-        for D in (LIN_DIM, 2 * H):
-            x = torch.randn((T, B, D), generator=gen, device=dev).to(dt)
+        for D in dims:
+            x = torch.randn((Tn, Bn, D), generator=gen, device=dev).to(dt)
             w = uniform(D, 4 * H)
             zeros = torch.zeros(H, device=dev)
             bias4 = torch.cat([zeros, uniform(H), uniform(H), zeros])
-            gh = torch.randn((T, B, H), generator=gen, device=dev).to(dt)
+            gh = torch.randn((Tn, Bn, H), generator=gen, device=dev).to(dt)
             w_c = w.to(dt)
-            x2 = x.reshape(T * B, D)
-            u_p = K.sru_proj_gemm_plain(x2, w_c).reshape(T, B, 4 * H)
-            checks = [("sru_proj_gemm", "u",
-                       K.sru_proj_gemm(x2, w_c).reshape(T, B, 4 * H), u_p,
+            x2 = x.reshape(Tn * Bn, D)
+            u_p = K.sru_proj_gemm_plain(x2, w_c).reshape(Tn, Bn, 4 * H)
+            checks = [("sru_proj_gemm", "u" + where,
+                       K.sru_proj_gemm(x2, w_c).reshape(Tn, Bn, 4 * H), u_p,
                        tol)]
             for reverse in (False, True):
                 h_k, c_k = K.sru_fwd_scan(u_p, bias4, lengths, reverse, 1)
@@ -331,17 +344,17 @@ def phase_kernels(dev, card, errs):
                                             reverse, 1)
                 du_p, db_p = K.sru_bwd_scan_plain(u_p, bias4, lengths, c_p,
                                                   gh, reverse, 1)
-                dx_k = K.mm_f32(du_k.reshape(T * B, -1), w_c.t())
-                dx_p = K.mm_f32(du_p.reshape(T * B, -1), w_c.t())
-                dw_k = K.mm_f32(x2.t(), du_k.reshape(T * B, -1))
-                dw_p = K.mm_f32(x2.t(), du_p.reshape(T * B, -1))
+                dx_k = K.mm_f32(du_k.reshape(Tn * Bn, -1), w_c.t())
+                dx_p = K.mm_f32(du_p.reshape(Tn * Bn, -1), w_c.t())
+                dw_k = K.mm_f32(x2.t(), du_k.reshape(Tn * Bn, -1))
+                dw_p = K.mm_f32(x2.t(), du_p.reshape(Tn * Bn, -1))
                 checks += [
-                    ("sru_fwd_scan", "h", h_k, h_p, tol),
-                    ("sru_fwd_scan", "c", c_k, c_p, TOL_F32_STATE),
-                    ("sru_bwd_scan", "du", du_k, du_p, tol),
-                    ("sru_bwd_scan", "db", db_k, db_p, TOL_F32_STATE),
-                    ("sru_bwd_scan", "dx", dx_k, dx_p, tol),
-                    ("sru_bwd_scan", "dW", dw_k, dw_p, tol),
+                    ("sru_fwd_scan", "h" + where, h_k, h_p, tol),
+                    ("sru_fwd_scan", "c" + where, c_k, c_p, TOL_F32_STATE),
+                    ("sru_bwd_scan", "du" + where, du_k, du_p, tol),
+                    ("sru_bwd_scan", "db" + where, db_k, db_p, TOL_F32_STATE),
+                    ("sru_bwd_scan", "dx" + where, dx_k, dx_p, tol),
+                    ("sru_bwd_scan", "dW" + where, dw_k, dw_p, tol),
                 ]
                 # the autograd path (kernels chained by fused_sru_proj_layer)
                 # against the plain chain fed with the kernel's own u
@@ -358,16 +371,39 @@ def phase_kernels(dev, card, errs):
                                                 1)
                 du_q, db_q = K.sru_bwd_scan_plain(u_k, bias4, lengths, c_q,
                                                   gh, reverse, 1)
-                du_q = du_q.reshape(T * B, -1)
+                du_q = du_q.reshape(Tn * Bn, -1)
                 checks += [
-                    ("layer", "h", h_a, h_q, tol),
-                    ("layer", "dx", xr.grad,
-                     K.mm_f32(du_q, w_c.t()).to(dt).reshape(T, B, D), tol),
-                    ("layer", "dW", wr.grad, K.mm_f32(x2.t(), du_q), tol),
-                    ("layer", "db", br.grad, db_q, TOL_F32_STATE),
+                    ("layer", "h" + where, h_a, h_q, tol),
+                    ("layer", "dx" + where, xr.grad,
+                     K.mm_f32(du_q, w_c.t()).to(dt).reshape(Tn, Bn, D), tol),
+                    ("layer", "dW" + where, wr.grad, K.mm_f32(x2.t(), du_q),
+                     tol),
+                    ("layer", "db" + where, br.grad, db_q, TOL_F32_STATE),
                 ]
             for kernel, what, got, ref, lim in checks:
                 check(kernel, what, dt, D, got, ref, lim, errs)
+
+
+def phase_kernels(dev, card, errs):
+    """Phase 3: each SRU kernel against its plain version at the acoustic
+    steps' shapes and at (4d)'s, and both timed at the acoustic ones."""
+    from gantts_tpu_torch.kernels import sru_scan as K
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    lengths = torch.as_tensor(bench_lengths(np.random.RandomState(0)),
+                              device=dev)
+    bound = 1.0 / H ** 0.5
+
+    def uniform(*shape):
+        return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound
+
+    check_sru_kernels(dev, gen, lengths, T, (LIN_DIM, 2 * H), errs)
+    # at (4d)'s shapes: B = 32 phone sequences padded to 96 steps, K = 416
+    # (8-aligned, so the GEMM reads x as it lies) and 2H
+    lh, Tp = duration_lengths(np.random.RandomState(0))
+    check_sru_kernels(dev, gen, torch.as_tensor(lh, device=dev), Tp,
+                      (PHONE_DIM, 2 * H), errs, ":4d")
     # the GEMM at the LSTM path's width: both directions' W_ih, N = 8H
     bf = torch.bfloat16
     for D in (LIN_DIM, 2 * H):
@@ -682,20 +718,69 @@ def lstm_param_count(in_dim, hidden, layers, out_dim):
     return 2 * sum(per_dir) + 2 * hidden * out_dim + out_dim
 
 
+def duration_hp(compute_dtype, **gen_overrides):
+    """The tts_duration bundle at full width (a 6x512 bidirectional relu
+    SRU, 416 phone-level inputs, 5 durations, the 3x256 MLP discriminator
+    conditioned on the 416 inputs, Adam with betas (0.5, 0.9))."""
+    from gantts_tpu_torch import hparams
+
+    hp = hparams.tts_duration.copy()
+    hp.compute_dtype = compute_dtype
+    hp.generator_params.update(in_dim=PHONE_DIM, out_dim=DUR_DIM,
+                               **gen_overrides)
+    hp.discriminator_params.update(in_dim=PHONE_DIM + DUR_DIM)
+    return hp
+
+
+def acoustic_batch(hp, dev):
+    """Phase 4's batch: B=20 x T=512 frames of random features, the lengths
+    of bench.py:103, and the dense MLPG matrix."""
+    from gantts_tpu_torch.core.windows import unit_variance_mlpg_matrix
+
+    rs = np.random.RandomState(0)
+    x = torch.as_tensor(rs.rand(B, T, LIN_DIM).astype(np.float32), device=dev)
+    y = torch.as_tensor(rs.rand(B, T, OUT_DIM).astype(np.float32), device=dev)
+    R = torch.as_tensor(unit_variance_mlpg_matrix(hp.windows, T), device=dev)
+    return x, y, bench_lengths(rs), R
+
+
+def duration_lengths(rs):
+    """DUR_B phone counts drawn uniformly from 20-80 (an assumption, see
+    PERF.md section 4), and the padded length: the longest rounded up to a
+    multiple of 32, as the data pipeline pads (data.py:178)."""
+    lh = rs.randint(20, 81, DUR_B).astype(np.int32)
+    return lh, -(-int(lh.max()) // 32) * 32
+
+
+def duration_batch(hp, dev):
+    """Phase 4d's batch: DUR_B phone sequences of duration_lengths; no MLPG
+    matrix (durations have no dynamic features)."""
+    rs = np.random.RandomState(0)
+    lh, Tp = duration_lengths(rs)
+    x = torch.as_tensor(rs.rand(DUR_B, Tp, PHONE_DIM).astype(np.float32),
+                        device=dev)
+    y = torch.as_tensor(rs.randn(DUR_B, Tp, DUR_DIM).astype(np.float32),
+                        device=dev)
+    return x, y, lh, None
+
+
 def make_trainer(hp, dev):
     from gantts_tpu_torch.train import GanTrainer, StepConfig
 
     cfg = StepConfig.from_hparams(hp, w_d=1.0, mse_w=0.0, mge_w=1.0,
                                   update_d=True, update_g=True)
-    return GanTrainer(cfg, np.zeros(OUT_DIM, np.float32),
-                      np.ones(OUT_DIM, np.float32), dev)
+    out_dim = hp.generator_params["out_dim"]
+    return GanTrainer(cfg, np.zeros(out_dim, np.float32),
+                      np.ones(out_dim, np.float32), dev)
 
 
-def phase_main_path(dev, card, tag, hp, per_step, n_expected=None):
-    """Phase 4 (``tag`` "4", "4b" or "4c"): full-width bf16 training steps
-    through the kernels.  ``per_step``: the launches of each kernel that
-    one step must make; ``n_expected``: the generator's parameter count."""
-    from gantts_tpu_torch.core.windows import unit_variance_mlpg_matrix
+def phase_main_path(dev, card, tag, hp, per_step, n_expected, make_batch,
+                    unit):
+    """Phase 4 (``tag`` "4", "4b", "4c" or "4d"): full-width bf16 training
+    steps through the kernels.  ``per_step``: the launches of each kernel
+    that one step must make; ``n_expected``: the generator's parameter
+    count; ``make_batch(hp, dev)``: (x, y, host lengths, R); ``unit``: what
+    one time step of the batch is (frames or phones)."""
     from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
     from gantts_tpu_torch.train.setup import init_models_and_states
 
@@ -708,12 +793,8 @@ def phase_main_path(dev, card, tag, hp, per_step, n_expected=None):
         fail(f"{hp.generator} has {n_params} parameters, its shapes give "
              f"{n_expected}")
     trainer = make_trainer(hp, dev)
-    rs = np.random.RandomState(0)
-    x = torch.as_tensor(rs.rand(B, T, LIN_DIM).astype(np.float32), device=dev)
-    y = torch.as_tensor(rs.rand(B, T, OUT_DIM).astype(np.float32), device=dev)
-    lh = bench_lengths(rs)
+    x, y, lh, R = make_batch(hp, dev)
     lengths = torch.as_tensor(lh, device=dev)
-    R = torch.as_tensor(unit_variance_mlpg_matrix(hp.windows, T), device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
@@ -738,11 +819,9 @@ def phase_main_path(dev, card, tag, hp, per_step, n_expected=None):
         vals = {k: float(v) for k, v in out.items()}
         print(f"[{tag}] step {i}: " + " ".join(
             f"{k}={v:.6g}" for k, v in vals.items()))
-        for k in ("discriminator", "loss_real_d", "loss_fake_d", "mge",
-                  "mse", "loss_adv", "generator", "mcd", "bap_mcd",
-                  "vuv_err"):
-            if not math.isfinite(vals[k]):
-                fail(f"step {i}: {k} is not finite ({vals[k]})")
+        for k, v in vals.items():  # the F0 error may have no voiced frame
+            if k != "f0_rmse" and not math.isfinite(v):
+                fail(f"step {i}: {k} is not finite ({v})")
     for p in list(model_g.parameters()) + list(model_d.parameters()):
         if not torch.isfinite(p).all():
             fail("a parameter is not finite after the steps")
@@ -753,9 +832,9 @@ def phase_main_path(dev, card, tag, hp, per_step, n_expected=None):
                  f"expected {per_step[name] * STEPS}")
     ms = dt / STEPS * 1e3
     fps = float(lh.sum()) * STEPS / dt
-    print(f"[{tag}] tts_acoustic {hp.generator} step B={B} T={T} bf16: "
-          f"{ms:.3f} ms/step, {fps:.1f} frames/s, peak memory {peak} bytes "
-          f"({peak / 2**30:.3f} GiB)  [{card}]")
+    print(f"[{tag}] tts_{hp.name} {hp.generator} step B={x.shape[0]} "
+          f"T={x.shape[1]} bf16: {ms:.3f} ms/step, {fps:.1f} valid {unit}/s, "
+          f"peak memory {peak} bytes ({peak / 2**30:.3f} GiB)  [{card}]")
 
     def run_steps(n):
         nonlocal gstate, dstate
@@ -850,8 +929,9 @@ def phase_profile(tag, run_steps, ms_unprofiled, card):
 
 
 def phase_small_step(dev, tag, hp):
-    """Phase 5 (``tag`` "5", "5b" or "5c"): a small float32 step (dropout off)
-    on the card against the same step on the CPU, from the same weights.
+    """Phase 5 (``tag`` "5", "5b", "5c" or "5d"): a small float32 step
+    (dropout off) on the card against the same step on the CPU, from the
+    same weights.
 
     Losses and metrics taken before any update must agree to PRE_RTOL: the
     card and the CPU differ there only in summation order and in libm's
@@ -864,18 +944,22 @@ def phase_small_step(dev, tag, hp):
     the comparison could not see such a slip.  Both limits sit between
     readings on an H100 (700 W): the largest sound gaps were 2.7e-7
     (pre-update) and 7.1e-6 (post-update), the control's 3.9e-5 and
-    5.9e-3.  The same limits hold the LSTMRNN step (5b) and the
-    unidirectional SRU step (5c)."""
+    5.9e-3.  The same limits hold the LSTMRNN step (5b), the
+    unidirectional SRU step (5c) and the tts_duration step (5d: 416 -> 5,
+    no MLPG matrix, the discriminator conditioned on the input, Adam,
+    whose first update is likewise about +-lr * sign(g))."""
     from gantts_tpu_torch.core.windows import unit_variance_mlpg_matrix
     from gantts_tpu_torch.train.setup import init_models_and_states
 
     hp.discriminator_params.update(dropout=0.0)
     Ts, Bs = 64, 4
     rs = np.random.RandomState(1)
-    batch = [rs.rand(Bs, Ts, LIN_DIM).astype(np.float32),
-             rs.rand(Bs, Ts, OUT_DIM).astype(np.float32),
-             np.r_[rs.randint(Ts // 2, Ts, Bs - 1), Ts].astype(np.int32),
-             unit_variance_mlpg_matrix(hp.windows, Ts)]
+    gp = hp.generator_params
+    batch = [rs.rand(Bs, Ts, gp["in_dim"]).astype(np.float32),
+             rs.rand(Bs, Ts, gp["out_dim"]).astype(np.float32),
+             np.r_[rs.randint(Ts // 2, Ts, Bs - 1), Ts].astype(np.int32)]
+    R = (unit_variance_mlpg_matrix(hp.windows, Ts)
+         if any(hp.has_dynamic_features) else None)
     states = []
 
     def run(device, tf32):
@@ -888,11 +972,12 @@ def phase_small_step(dev, tag, hp):
         else:
             gstate.model.load_state_dict(states[0])
             dstate.model.load_state_dict(states[1])
-        x, y, lengths, R = (torch.as_tensor(a, device=device) for a in batch)
+        x, y, lengths = (torch.as_tensor(a, device=device) for a in batch)
+        R_d = None if R is None else torch.as_tensor(R, device=device)
         torch.backends.cuda.matmul.allow_tf32 = tf32
         try:
             _, _, out = make_trainer(hp, device).step(gstate, dstate, x, y,
-                                                      lengths, R, 1.0)
+                                                      lengths, R_d, 1.0)
             out = {k: float(v) for k, v in out.items()}
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -1066,6 +1151,130 @@ def phase_cli(card):
     return totals
 
 
+def write_duration_corpus(dst, num=96, phones=(20, 81), seed=0):
+    """A synthetic phone-level corpus in the repository's on-disk layout
+    (tests/make_synthetic_data.py --kind duration, which this script cannot
+    call: it imports the JAX package): ``dst/X_duration`` with
+    (N, PHONE_DIM) linguistic features in [-4, 4] and ``dst/Y_duration``
+    with (N, DUR_DIM) state durations of 1-20 frames, N phones drawn from
+    ``phones`` (the 4d assumption, see duration_lengths), one float32 .npy
+    per utterance."""
+    rs = np.random.RandomState(seed)
+    for sub in ("X_duration", "Y_duration"):
+        os.makedirs(os.path.join(dst, sub), exist_ok=True)
+    for i in range(num):
+        n = int(rs.randint(*phones))
+        lin = np.clip(_smooth(rs, n, PHONE_DIM), -4, 4)
+        dur = np.clip(np.abs(_smooth(rs, n, DUR_DIM)) * 2 + 1, 1, 20)
+        name = f"utt_{i:04d}.npy"
+        np.save(os.path.join(dst, "X_duration", name), lin.astype(np.float32))
+        np.save(os.path.join(dst, "Y_duration", name), dur.astype(np.float32))
+
+
+def phase_curriculum(card):
+    """Phase 7: ``python -m gantts_tpu_torch.curriculum``'s main() with the
+    full-width tts_duration bundle (bf16 matmuls) on a synthetic corpus of
+    96 phone sequences (416 -> 5 dims) in a temporary directory, with
+    train_gan.sh's default switches: stages 1-3 and 5 (baseline to epoch 2,
+    generator warm-up 1 epoch, discriminator warm-up 1 epoch, adversarial
+    epoch 2 from both warm-ups).  Each stage's launches are read around its
+    call of the training main(); each must match what its steps need (12
+    sru_proj_gemm and 12 sru_fwd_scan per step, 12 sru_bwd_scan per step
+    that trains the generator).  Checks every checkpoint and that the logged
+    values are finite.  The command lines' own output goes to a log, whose
+    tail is printed if a stage fails.  Returns the launch counts of all
+    stages."""
+    from unittest import mock
+
+    from gantts_tpu_torch import curriculum
+    from gantts_tpu_torch.data import NPYDataSource
+    from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from gantts_tpu_torch.train import __main__ as train_cli
+
+    real_main, stages, totals = train_cli.main, [], {}
+
+    def counted_main(argv):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = real_main(argv)
+        torch.cuda.synchronize()
+        stages.append((rc, time.perf_counter() - t0, dict(launch_counts)))
+        return rc
+
+    switches = {"W_D", "ADV_HPARAMS"} | {
+        switch for switch, _ in curriculum.STAGES.values()}
+    env = {k: v for k, v in os.environ.items() if k not in switches}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_duration_corpus(tmp)
+        xdir, ydir = (os.path.join(tmp, d) for d in ("X_duration",
+                                                     "Y_duration"))
+        ck, out_path = os.path.join(tmp, "ck"), os.path.join(tmp, "out.log")
+        n_steps = {phase: -(-len(NPYDataSource(xdir, train=phase == "train")
+                                 .collect_files()) // DUR_B)
+                   for phase in ("train", "test")}
+        argv = ["tts_duration", "compute_dtype=bfloat16", xdir, ydir, ck,
+                "1", "1", "1", "2"]
+        t0 = time.perf_counter()
+        with open(out_path, "w") as out:
+            try:
+                with contextlib.redirect_stdout(out), \
+                        plain_versions_forbidden(), \
+                        mock.patch.object(train_cli, "main", counted_main):
+                    rc = curriculum.main(argv, env=env)
+            except BaseException:
+                out.flush()
+                with open(out_path) as f:
+                    print("".join(f.readlines()[-40:]))
+                raise
+        dt = time.perf_counter() - t0
+        print(f"[7] curriculum exit {rc}, {len(stages)} stages, {dt:.2f} s "
+              f"({n_steps['train']} train and {n_steps['test']} test steps "
+              f"an epoch)")
+        if rc != 0 or len(stages) != 4:
+            fail(f"the curriculum exited {rc} after {len(stages)} stages")
+        # (stage, epochs, trains the generator): stages 1, 2, 3 and 5
+        plan = [("baseline", 2, True), ("generator_warmup", 1, True),
+                ("discriminator_warmup", 1, False), ("adversarial", 1, True)]
+        for (name, epochs, trains_g), (stage_rc, secs, counts) in zip(
+                plan, stages):
+            steps = epochs * (n_steps["train"] + n_steps["test"])
+            want = {"sru_proj_gemm": 12 * steps, "sru_fwd_scan": 12 * steps,
+                    "sru_bwd_scan": 12 * epochs * n_steps["train"] * trains_g}
+            print(f"[7] stage {name}: exit {stage_rc}, {secs:.2f} s, launches "
+                  f"{ {k: n for k, n in counts.items() if n} }")
+            for k, n in counts.items():
+                if n != want.get(k, 0):
+                    fail(f"stage {name}: {k} launched {n} times, its steps "
+                         f"need {want.get(k, 0)}")
+                totals[k] = totals.get(k, 0) + n
+        for path in ("baseline/checkpoint_epoch2_Generator.pth",
+                     "gan/checkpoint_epoch1_Generator.pth",
+                     "gan/checkpoint_epoch1_Discriminator.pth",
+                     "gan/checkpoint_epoch2_Generator.pth",
+                     "gan/checkpoint_epoch2_Discriminator.pth"):
+            if not os.path.exists(os.path.join(ck, path)):
+                fail(f"no checkpoint {path}")
+        rows = {}
+        for stage in ("baseline", "gan"):
+            with open(os.path.join(ck, stage, "log", "scalars.jsonl")) as f:
+                rows[stage] = [json.loads(line) for line in f]
+    for stage, logged in rows.items():
+        bad = [r for r in logged if not math.isfinite(r["value"])]
+        if bad or not logged:
+            fail(f"{stage} log: {len(bad)} of {len(logged)} values not "
+                 f"finite ({bad[:3]})")
+        for r in logged:
+            if r["tag"] == "train frames_per_sec":
+                print(f"[7] {stage} epoch {r['step']}: {r['value']:.1f} "
+                      f"valid phones/s in the train phase  [{card}]")
+            elif r["tag"] == "train dur_rmse metric":
+                print(f"[7] {stage} epoch {r['step']}: train dur_rmse "
+                      f"{r['value']:.4f} frames")
+    print(f"[7] {sum(len(r) for r in rows.values())} logged values, all "
+          f"finite; checkpoints of stages 1-3 and 5 written")
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this script drives the port on a GPU")
@@ -1102,19 +1311,27 @@ def main():
     none = {k: 0 for k in KERNELS}
     paths = [("4", acoustic_hp("bfloat16"),
               dict(none, sru_proj_gemm=12, sru_fwd_scan=12, sru_bwd_scan=12),
-              sru_param_count(LIN_DIM, H, 6, OUT_DIM, True)),
+              sru_param_count(LIN_DIM, H, 6, OUT_DIM, True), acoustic_batch,
+              "frames"),
              ("4b", lstm_hp("bfloat16"),
               dict(none, sru_proj_gemm=6, lstm_fwd_scan=6, lstm_bwd_scan=6),
-              lstm_param_count(LIN_DIM, H, 6, OUT_DIM)),
+              lstm_param_count(LIN_DIM, H, 6, OUT_DIM), acoustic_batch,
+              "frames"),
              ("4c", acoustic_hp("bfloat16", bidirectional=False),
               dict(none, sru_proj_gemm=1, sru_fwd_scan=1, sru_bwd_scan=1,
                    linear_recurrence_fwd=5, linear_recurrence_bwd=5),
-              sru_param_count(LIN_DIM, H, 6, OUT_DIM, False))]
+              sru_param_count(LIN_DIM, H, 6, OUT_DIM, False),
+              acoustic_batch, "frames"),
+             ("4d", duration_hp("bfloat16"),
+              dict(none, sru_proj_gemm=12, sru_fwd_scan=12, sru_bwd_scan=12),
+              sru_param_count(PHONE_DIM, H, 6, DUR_DIM, True),
+              duration_batch, "phones")]
     launches = dict(none)
-    for tag, hp, per_step, n_expected in paths:
+    for tag, hp, per_step, n_expected, make_batch, unit in paths:
         with plain_versions_forbidden():
             counts, ms, run_steps = phase_main_path(dev, card, tag, hp,
-                                                    per_step, n_expected)
+                                                    per_step, n_expected,
+                                                    make_batch, unit)
             names = phase_profile(tag, run_steps, ms, card)
             for way in ("fwd", "bwd"):
                 if not counts[f"lstm_{way}_scan"] or names is None:
@@ -1134,11 +1351,15 @@ def main():
     phase_small_step(dev, "5c", acoustic_hp(
         "float32", num_hidden=3, hidden_dim=64, dropout=0.0, rnn_dropout=0.0,
         bidirectional=False))
+    phase_small_step(dev, "5d", duration_hp(
+        "float32", num_hidden=2, hidden_dim=64, dropout=0.0, rnn_dropout=0.0))
     for k, n in phase_cli(card).items():
         launches[k] += n
+    for k, n in phase_curriculum(card).items():
+        launches[k] += n
 
-    # launches: the main paths' runs, 4, 4b, 4c and 6 (sru_proj_gemm and
-    # the SRU scans serve several)
+    # launches: the main paths' runs, 4, 4b, 4c, 4d, 6 and 7 (sru_proj_gemm
+    # and the SRU scans serve several)
     kernels = [dict({"name": k, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[k],
                      "max_abs_err": errs[k]}, **recs[k])

@@ -8,15 +8,19 @@ in gantts_tpu/kernels/sru_scan.py.  Two kernels, built from
 them on the card and what their design does about it):
 
   ``linear_recurrence_fwd``  c_t = f_t c_{t-1} + b_t, c_{-1} = 0
-                             (replaces ``_fwd_kernel``);
+                             (replaces ``_fwd_kernel``); any T, walked in
+                             windows of 256 steps;
   ``linear_recurrence_bwd``  ghat_t = g_t + f_{t+1} ghat_{t+1},
                              df_t = ghat_t c_{t-1}, db_t = ghat_t
                              (replaces ``_bwd_kernel`` and the shifted
-                             copies its caller builds), T split into
-                             32-step chunks joined through their carries,
-                             so it agrees with its plain version to
-                             rounding, not bit for bit; T up to
+                             copies its caller builds); T up to
                              ``MAX_BWD_STEPS``.
+
+Both split T into chunks (16 steps forward, 32 backward) joined through their
+carries, so they agree with their plain versions to rounding (1e-6 of
+scale), not bit for bit: only the chunk each traversal starts with (the
+forward's first 16 steps, the backward's last 32), whose carry is 0, is
+exact.
 
 Each wrapper takes the plain version when, and only when, its tensors lie on
 the CPU.  A CUDA tensor goes to the kernel; anything the kernel does not take
@@ -51,7 +55,8 @@ MAX_BWD_STEPS = 8192  # 32-step chunks, all of a lane's in one block
 
 # ---------------------------------------------------------------------------
 # Plain versions: the CPU path, and what the kernels are held to on the card.
-# Each product and sum is its own op, as the kernels round them.
+# Each product and sum is its own op, as the kernels' second passes round
+# them.
 # ---------------------------------------------------------------------------
 
 

@@ -246,6 +246,35 @@ def test_bwd_scan_at_the_step_shape(cuda, dt, reverse):
         assert _rel(du_k, du_p) < TOL[dt] and _rel(db_k, db_p) < 1e-4
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("Tn", [32, 64])
+def test_sru_kernels_at_the_duration_step_shapes(cuda, dt, reverse, Tn):
+    """The tts_duration step's shapes: B=32 utterances padded to T=32 or 64
+    (half of one 64-step window, or one), H=512, and the first layer's
+    K=416 phone features (a multiple of 8, so the bf16 GEMM reads x as it
+    lies) beside the later layers' K=1024.  The GEMM, both scans and the
+    backward's per-b bias-gradient join over 32 rows, the backward launched
+    twice."""
+    Bn, Hn = 32, 512
+    rs = np.random.RandomState(Tn)
+    for Kd in (416, 1024):
+        x2 = torch.tensor(rs.randn(Tn * Bn, Kd), dtype=dt, device=cuda)
+        w = torch.tensor(rs.randn(Kd, 4 * Hn) * 0.05, dtype=dt, device=cuda)
+        u = K.sru_proj_gemm(x2, w)
+        assert u.shape == (Tn * Bn, 4 * Hn)
+        assert _rel(u, K.sru_proj_gemm_plain(x2, w)) < TOL[dt]
+    u, bias4, lengths, gh = _bwd_inputs(cuda, dt, Tn, Bn, Hn)
+    h_k, c_k = K.sru_fwd_scan(u, bias4, lengths, reverse, 1)
+    h_p, c_p = K.sru_fwd_scan_plain(u, bias4, lengths, reverse, 1)
+    assert _rel(h_k, h_p) < TOL[dt] and _rel(c_k, c_p) < 1e-4
+    du_p, db_p = K.sru_bwd_scan_plain(u, bias4, lengths, c_p, gh, reverse, 1)
+    for _ in range(2):
+        du_k, db_k = K.sru_bwd_scan(u, bias4, lengths, c_p, gh, reverse, 1)
+        torch.cuda.synchronize()
+        assert _rel(du_k, du_p) < TOL[dt] and _rel(db_k, db_p) < 1e-4
+
+
 # ---------------------------------------------------------------------------
 # LSTM kernels.  Shapes as tests/test_kernels.py's: T=21, B=3, H=9 with
 # lengths [21, 13, 5] (one block per hidden unit, H not a multiple of
@@ -540,12 +569,11 @@ def test_lstm_forward_matches_cudnn(cuda):
 
 # ---------------------------------------------------------------------------
 # The linear recurrence of the k=3 SRU layer.  The kernels round each product
-# and sum on its own, as the plain version does: the forward in its order, so
-# the two agree exactly; the backward from carries composed across 32-step
-# chunks, so to rounding.  The limit is 1e-6 of scale.  T=37 is not a
-# multiple of the forward's unroll or of the backward's chunk and B*H=240
-# lanes do not fill the forward's last block; the second shape is the
-# step's.
+# and sum on its own, as the plain version does, from carries composed across
+# chunks (16 steps forward, 32 backward), so the two agree to rounding,
+# exactly only in the chunk a traversal starts with.  The limit is 1e-6 of
+# scale.  T=37 is not a multiple of either chunk and B*H=240 lanes do not
+# fill a block; the second shape is the step's.
 # ---------------------------------------------------------------------------
 
 
@@ -598,6 +626,57 @@ def test_linear_recurrence_bwd_chunked(cuda, Tn, Bn, Hn):
     top = slice(max(0, Tn - 32), Tn)
     assert torch.equal(db_k[top], db_p[top])
     assert torch.equal(df_k[top], df_p[top])
+
+
+@pytest.mark.parametrize("Tn,Bn,Hn", [
+    (Tn, Bn, Hn)
+    for Tn in (1, 15, 16, 17, 31, 32, 33, 69, 255, 256, 257, 512)
+    for Bn, Hn in ((3, 9), (7, 300), (20, 512))]
+    + [(9000, 3, 9), (1100, 2, 300)])
+def test_linear_recurrence_fwd_chunked(cuda, Tn, Bn, Hn):
+    """The time-chunked forward against its plain version: T of one step,
+    one and two 16-step chunks and one step either side, a partial last
+    chunk, one 256-step window (16 chunks) and one step either side, and
+    the step's 512 (two windows); 27 lanes (a block of 32 lanes, part
+    empty), 2100 and the step's 10,240.  T=9000 and 1100 take many windows
+    (past the backward's MAX_BWD_STEPS, both ending in a partial window),
+    the lane's c carried from one to the next.  The first chunk (carry 0)
+    is exact."""
+    L = linear_scan
+    f, b, _ = (a[:Tn] for a in _linear_inputs(cuda, max(Tn, 2), Bn, Hn,
+                                               seed=Tn))
+    K.reset_launch_counts()
+    c_k = L.linear_recurrence_fwd(f, b)
+    c_p = L.linear_recurrence_fwd_plain(f, b)
+    torch.cuda.synchronize()
+    assert c_k.shape == (Tn, Bn, Hn) and c_k.dtype == torch.float32
+    assert _rel(c_k, c_p) <= 1e-6
+    assert torch.equal(c_k[:16], c_p[:16])
+    assert L.launch_counts["linear_recurrence_fwd"] == 1
+
+
+def test_linear_recurrence_fwd_identity_and_repeat(cuda):
+    """f = 1 everywhere (every chunk's product is 1, the carries a running
+    sum), and lanes of length 1 whose padding (f = 1, b = 0) must hold the
+    first c exactly; two launches on the same inputs give the same bits."""
+    L = linear_scan
+    rs = np.random.RandomState(4)
+    Tn, Bn, Hn = 300, 4, 40
+    b = torch.tensor(rs.randn(Tn, Bn, Hn), dtype=torch.float32, device=cuda)
+    ones = torch.ones_like(b)
+    c_k = L.linear_recurrence_fwd(ones, b)
+    assert _rel(c_k, L.linear_recurrence_fwd_plain(ones, b)) <= 1e-6
+    f, b, _ = _linear_inputs(cuda, Tn, Bn, Hn, seed=4)
+    valid = torch.ones(Tn, Bn, 1, device=cuda)
+    valid[1:, :2] = 0  # lanes of batch rows 0 and 1 have length 1
+    f, b = f * valid + (1 - valid), b * valid
+    c1 = L.linear_recurrence_fwd(f, b)
+    c2 = L.linear_recurrence_fwd(f, b)
+    torch.cuda.synchronize()
+    assert torch.equal(c1, c2)
+    assert _rel(c1, L.linear_recurrence_fwd_plain(f, b)) <= 1e-6
+    assert torch.equal(c1[:, :2], c1[:1, :2].expand(Tn, 2, Hn))
+    assert torch.equal(c1[0, :2], b[0, :2])
 
 
 def test_linear_recurrence_refuses_what_it_does_not_take(cuda):

@@ -35,6 +35,7 @@ def test_port_imports_without_jax():
     module's file lies under gantts_tpu/."""
     assert "gantts_tpu_torch.train.__main__" in MODULES
     assert "gantts_tpu_torch.kernels.linear_scan" in MODULES
+    assert "gantts_tpu_torch.curriculum" in MODULES
     proc = _run(
         "import importlib, os, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"

@@ -107,6 +107,13 @@ def _torch_adagrad(lr, weight_decay):
                        optax.scale(-lr))
 
 
+def _torch_rule(name, params, package_tx):
+    """The JAX-side optimizer that follows torch's rule: Adagrad written
+    out by ``_torch_adagrad``; the package's own Adam already is torch's
+    (eps after the square root), so ``package_tx`` is kept."""
+    return _torch_adagrad(**params) if name == "Adagrad" else package_tx
+
+
 class _GradCapture:
     """torch counterpart: ``step`` records the gradients, updates nothing."""
 
@@ -124,27 +131,30 @@ class _GradCapture:
 _CACHE = {}
 
 
-def _run_both(optimizer, compute_dtype="float32", hp_fn=_hp):
+def _run_both(optimizer, compute_dtype="float32", hp_fn=_hp,
+              batch_fn=_batch):
     """Both packages take one training step; cached per case because the
     JAX step compiles for each.  ``optimizer``: "capture" (no update, the
-    gradients kept), "torch_rule" (JAX with torch's Adagrad rule) or
-    "package" (JAX with its own ``create_optimizer``, adv_w = 0).
-    ``hp_fn(hparams_module, compute_dtype)`` gives the configuration."""
-    key = (optimizer, compute_dtype, hp_fn)
+    gradients kept), "torch_rule" (JAX with torch's rule, see
+    ``_torch_rule``) or "package" (JAX with its own ``create_optimizer``,
+    adv_w = 0).  ``hp_fn(hparams_module, compute_dtype)`` gives the
+    configuration, ``batch_fn()`` its batch (R is None where no stream has
+    dynamic features)."""
+    key = (optimizer, compute_dtype, hp_fn, batch_fn)
     if key not in _CACHE:
-        _CACHE[key] = _step_both(optimizer, compute_dtype, hp_fn)
+        _CACHE[key] = _step_both(optimizer, compute_dtype, hp_fn, batch_fn)
     return _CACHE[key]
 
 
-def _step_both(optimizer, compute_dtype, hp_fn):
-    x, y, lengths, R, Y_mean, Y_std = _batch()
+def _step_both(optimizer, compute_dtype, hp_fn, batch_fn):
+    x, y, lengths, R, Y_mean, Y_std = batch_fn()
     jhp = hp_fn(jax_hparams, compute_dtype)
     model_g, model_d, tx_g, tx_d, jg, jd = jax_init(jhp, seed=0)
     if optimizer == "capture":
         tx_g, tx_d = _grad_capture(), _grad_capture()
     elif optimizer == "torch_rule":
-        tx_g = _torch_adagrad(**jhp.optimizer_g_params)
-        tx_d = _torch_adagrad(**jhp.optimizer_d_params)
+        tx_g = _torch_rule(jhp.optimizer_g, jhp.optimizer_g_params, tx_g)
+        tx_d = _torch_rule(jhp.optimizer_d, jhp.optimizer_d_params, tx_d)
     jg = JaxState(jg.params, tx_g.init(jg.params))
     jd = JaxState(jd.params, tx_d.init(jd.params))
     jtr = JaxTrainer(model_g, model_d, tx_g, tx_d,
@@ -171,10 +181,11 @@ def _step_both(optimizer, compute_dtype, hp_fn):
                            lambda: pallas):
         jg, jd, jout, _ = jtr.step_fn(True)(
             jg, jd, None, jnp.asarray(x), jnp.asarray(y),
-            jnp.asarray(lengths), jnp.asarray(R), None, jnp.float32(adv_w),
-            jax.random.PRNGKey(0))
+            jnp.asarray(lengths), None if R is None else jnp.asarray(R),
+            None, jnp.float32(adv_w), jax.random.PRNGKey(0))
     tg, td, out = tr.step(tg, td, torch.tensor(x), torch.tensor(y),
-                          torch.tensor(lengths), torch.tensor(R), adv_w)
+                          torch.tensor(lengths),
+                          None if R is None else torch.tensor(R), adv_w)
     return (jg, jd, jout), (tg, td, out), (g0, d0), int(lengths.sum())
 
 
@@ -221,9 +232,9 @@ def test_eval_step_updates_nothing():
         assert float(ev[k]) == float(out[k]), k
 
 
-def _check_gradients(compute_dtype, hp_fn=_hp):
+def _check_gradients(compute_dtype, hp_fn=_hp, batch_fn=_batch):
     (jg, jd, jout), (tg, td, out), _, n = _run_both("capture", compute_dtype,
-                                                    hp_fn)
+                                                    hp_fn, batch_fn)
     _check_outputs(jout, out, n)
     for jstate, tstate in ((jg, tg), (jd, td)):
         ref = convert.flax_to_torch(jstate.opt_state)
