@@ -17,8 +17,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      kernels with two directions and with one, forward and reversed; (3c)
      the linear recurrence of the k=3 SRU layer in float32, with ragged
      lengths; the bf16 GEMM also at the LSTM path's N = 8H; the SRU
-     kernels also at (4d)'s shapes, B=32, T=96, D in {416, 1024}), and
-     time both,
+     kernels also at (4d)'s shapes, B=32, T=96, D in {416, 1024}; the
+     one-direction LSTM kernels and the GEMM also at the VC path's shapes,
+     D in {177, 512}, in float32 (the cooperative kernels) and bfloat16),
+     and time both,
      beside the library call that computes the same function where there
      is one (cuBLAS for the GEMM, at every (K, N) the main paths give it; a
      cuDNN bidirectional LSTM layer for the LSTM scans); the LSTM
@@ -35,13 +37,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      (4d) the full-width tts_duration step: the 6x512 bidirectional SRU on
      416 phone-level inputs and 5 durations, the conditioned 3x256 MLP
      discriminator, Adam, B=32 phone sequences of 20-80 phones padded to a
-     multiple of 32;
+     multiple of 32; the full-width vc GAN step (177 -> 177 at B=20,
+     T=512, the 59 -> 2x256 -> 1 discriminator on the static mel-cepstra,
+     dense MLPG, Adagrad, bfloat16) with (4e) In2OutRNNHighwayNet, a 3x512
+     unidirectional LSTM, and (4f) the bundle's In2OutHighwayNet, whose MLP
+     trunk launches none of the kernels;
   5. one small float32 step on the card against the same step on the CPU
      (where every kernel wrapper takes its plain version), same weights,
      and the same step on the card with TF32 matmuls as a control that the
      comparison's limit must catch: (5) with an SRU generator, (5b) with an
      LSTMRNN, (5c) with a unidirectional SRU, (5d) with the tts_duration
-     bundle (Adam, no MLPG matrix);
+     bundle (Adam, no MLPG matrix), (5e) with the vc bundle and an
+     In2OutRNNHighwayNet (MLPG inside the generator);
   6. the port's training command line (gantts_tpu_torch.train) on a
      synthetic acoustic corpus written by the port's own code: two epochs
      of (4c)'s configuration, then a second stage resumed from both
@@ -49,9 +56,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   7. the port's curriculum command (gantts_tpu_torch.curriculum, the
      counterpart of train_gan.sh) with the full-width tts_duration bundle
      on a synthetic phone-level corpus: stages 1-3 and 5, one or two epochs
-     each, with each stage's checkpoints, logs and kernel launches checked.
+     each, with each stage's checkpoints, logs and kernel launches checked;
+  8. the curriculum command with the vc bundle in its own float32 and a
+     full-width In2OutRNNHighwayNet, on a parallel corpus the script makes
+     from speech-like waveforms with the port's own WORLD/SPTK analysis:
+     all five stages, the spoofing model included, so that stage 5 logs
+     the spoofing rate;
+  9. the port's VC evaluation command line (gantts_tpu_torch.evaluation_vc)
+     with phase 8's generator, with --diffvc and without, over the corpus's
+     eval and test wavs: launches per utterance, finite and non-silent
+     waveforms, analysis.json, the seconds an utterance takes, and the
+     first utterance's prediction against a CPU copy of the generator.
 
-Each of (4), (4b), (4c) and (4d) ends with a torch.profiler trace of a few more
+Each of (4) to (4f) ends with a torch.profiler trace of a few more
 of its steps, which prints where the device time goes and the idle share
 the trace measured (nothing is written to disk).
 
@@ -82,6 +99,7 @@ T, B, H = 512, 20, 512
 LIN_DIM, OUT_DIM = 425, 187
 DISC_IN = 60 - 2 + LIN_DIM
 PHONE_DIM, DUR_DIM, DUR_B = 416, 5, 32  # tts_duration (4d, 7)
+VC_DIM, VC_STATIC, VC_FS = 177, 59, 16000  # the vc bundle (4e, 4f, 8, 9)
 SRU_SOURCE = "gantts_tpu_torch/kernels/csrc/sru_scan.cu"
 LSTM_SOURCE = "gantts_tpu_torch/kernels/csrc/lstm_scan.cu"
 LINEAR_SOURCE = "gantts_tpu_torch/kernels/csrc/linear_scan.cu"
@@ -121,6 +139,13 @@ LSTM_TOL_STATE = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 # Phase 5 limits on |card - cpu| / max(|cpu|, 1e-6), see phase_small_step.
 PRE_RTOL = 3e-6   # losses and metrics taken before any parameter update
 POST_RTOL = 2e-4  # loss_adv and generator: through the just-updated D
+# Tensors on max|card - cpu| / max|cpu|, f32, TF32 off: 5e's probe (the
+# In2Out generator's own term and its gradients) and phase 9's predicted
+# statics.  On an H100 (700 W) the card read 1.16e-6 and 7.43e-7 (summation
+# order, libm), the TF32 controls 2.10e-4 to 3.70e-4 in every tensor (a
+# 10-bit mantissa): the limit sits about 17x from both.
+PROBE_RTOL = 2e-5
+VC_Y_RTOL = 2e-5
 POST_UPDATE = ("loss_adv", "generator")
 # Linear recurrence (3c): the kernels round each product and sum on its
 # own, as the plain version's separate PyTorch ops do, but both start each
@@ -623,36 +648,38 @@ def phase_lstm_kernels(dev, card, errs):
     }
 
 
-def require_designs(L, want, dt, what):
+def require_designs(L, want, dt, what, Bn=B):
     """Print the design the launchers of lstm_fwd_scan and lstm_bwd_scan
-    take at the step's shape (B, H) in ``dt``; fail unless both are
-    ``want``: the training steps' bf16 shapes must take the cluster
-    kernels, f32 the cooperative ones."""
+    take at the shape (Bn, H) in ``dt``; fail unless both are ``want``: the
+    training steps' bf16 shapes must take the cluster kernels, f32 the
+    cooperative ones."""
     for kernel, design in (("lstm_fwd_scan", L.fwd_design),
                            ("lstm_bwd_scan", L.bwd_design)):
-        took = design(B, H, dt)
+        took = design(Bn, H, dt)
         print(f"[3] {kernel} {what}: {took} kernel")
         if took != want:
             fail(f"{kernel} ({what}) takes the {took} kernel, expected the "
                  f"{want} one")
 
 
-def time_cudnn_lstm(dev, card, gen, lengths, reverse):
+def time_cudnn_lstm(dev, card, gen, lengths, reverse, D=None,
+                    dt=torch.bfloat16):
     """The library yardstick of the LSTM scans: one torch.nn.LSTM layer
     (cuDNN) with the directions of ``reverse`` (both, or one) at the step's
-    shapes, bf16, D = H * directions inputs (what the layers after the
-    first of such a stack see), forward and forward+backward, beside the
-    port's layer (``lstm_proj_layer``: sru_proj_gemm, the scans, and the
-    dx/dW matmuls) on the same shapes.  cuDNN runs every row to T (no
-    packing); the port's kernels walk all of T too, masking the padding."""
+    shapes, in ``dt``, D inputs (by default H * directions, what the layers
+    after the first of such a stack see), forward and forward+backward,
+    beside the port's layer (``lstm_proj_layer``: sru_proj_gemm, the scans,
+    and the dx/dW matmuls) on the same shapes.  cuDNN runs every row to T
+    (no packing); the port's kernels walk all of T too, masking the
+    padding."""
     from gantts_tpu_torch.kernels import lstm_scan as L
 
     nd = len(reverse)
-    D = nd * H
-    lstm = torch.nn.LSTM(D, H, bidirectional=nd == 2).to(dev, torch.bfloat16)
-    x = torch.randn((T, B, D), generator=gen, device=dev).to(torch.bfloat16)
-    gy = torch.randn((T, B, nd * H), generator=gen, device=dev).to(
-        torch.bfloat16)
+    D = D or nd * H
+    cd = "bfloat16" if dt == torch.bfloat16 else "float32"
+    lstm = torch.nn.LSTM(D, H, bidirectional=nd == 2).to(dev, dt)
+    x = torch.randn((T, B, D), generator=gen, device=dev).to(dt)
+    gy = torch.randn((T, B, nd * H), generator=gen, device=dev).to(dt)
     x.requires_grad_(True)
     sfxs = ("", "_reverse")[:nd]
     params = [{k: getattr(lstm, f"{n}_l0{sfx}").detach().float().t()
@@ -671,20 +698,125 @@ def time_cudnn_lstm(dev, card, gen, lengths, reverse):
         y.backward(gy)
 
     def port_fwd_bwd():
-        L.lstm_proj_layer(x, params, lengths, reverse,
-                          "bfloat16").backward(gy)
+        L.lstm_proj_layer(x, params, lengths, reverse, cd).backward(gy)
 
     with torch.no_grad():
         t = {"fwd": time_ms(lambda: lstm(x), 10),
              "port fwd": time_ms(lambda: L.lstm_proj_layer(
-                 x, params, lengths, reverse, "bfloat16"), 10)}
+                 x, params, lengths, reverse, cd), 10)}
     t["fwd+bwd"] = time_ms(cudnn_fwd_bwd, 10)
     t["port fwd+bwd"] = time_ms(port_fwd_bwd, 10)
     print(f"[3] time cuDNN {'bidirectional' if nd == 2 else 'one-direction'}"
-          f" LSTM layer bf16 D={D}: forward {t['fwd']:.4f} ms, "
+          f" LSTM layer {str(dt)[6:]} D={D}: forward {t['fwd']:.4f} ms, "
           f"forward+backward {t['fwd+bwd']:.4f} ms; the port's layer "
           f"{t['port fwd']:.4f} / {t['port fwd+bwd']:.4f} ms  [{card}]")
     return t
+
+
+def phase_vc_lstm_kernels(dev, card, errs):
+    """Phase 3 at the VC path's shapes (In2OutRNNHighwayNet's
+    unidirectional 3x512 LSTM): B=20, T=512, H=512, one direction forward
+    and reversed, D = 177 (layer 0, which the bf16 GEMM copies into rows
+    184 wide) and 512.  sru_proj_gemm's xp, then both scans fed that xp,
+    against their plain versions, in float32 (the bundle's own dtype: the
+    cooperative kernels) and bfloat16 (the cluster kernels), each printing
+    the design it took.  Then the f32 kernels timed beside their plain
+    versions, and the one-direction layer beside cuDNN's at D = 177 in
+    both dtypes.
+
+    Phases 8 and 9 give the f32 kernels two more shapes, checked the same
+    way (forward direction, the cooperative design required): phase 9's
+    one utterance, B=1 at T=480 (a 467-frame utterance padded to the
+    bucket multiple of 32), and phase 8's trailing and test batches, B=20
+    with 3 real rows and 17 zero-length rows that pad the batch."""
+    from gantts_tpu_torch.kernels import lstm_scan as L
+    from gantts_tpu_torch.kernels import sru_scan as K
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    bound = 1.0 / H ** 0.5
+
+    def uniform(*shape):
+        return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound
+
+    def randn(*shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    def lengths_of(values):
+        return torch.as_tensor(np.asarray(values, np.int32), device=dev)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    lengths = lengths_of(bench_lengths(np.random.RandomState(0)))
+    cases = [  # dtype, T, lengths, directions, label
+        (f32, T, lengths, ((False,), (True,)), "vc"),
+        (bf16, T, lengths, ((False,), (True,)), "vc"),
+        (f32, 480, lengths_of([467]), ((False,),), "vc9"),
+        (f32, T, lengths_of([497, 301, 402] + [0] * 17), ((False,),),
+         "vc8")]
+    for dt, Tn, lens, reverses, label in cases:
+        Bn = len(lens)
+        tol, tol_state = LSTM_TOL[dt], LSTM_TOL_STATE[dt]
+        whh, bias = uniform(1, H, 4 * H).to(dt), uniform(1, 4 * H)
+        gy = randn(Tn, Bn, H, dt=dt)
+        for D in (VC_DIM, H):
+            x2 = randn(Tn * Bn, D, dt=dt)
+            w_ih = uniform(D, 4 * H).to(dt)
+            xp = L.sru_proj_gemm(x2, w_ih)
+            check("sru_proj_gemm", f"u:{label}", dt, D, xp,
+                  K.sru_proj_gemm_plain(x2, w_ih), TOL[dt], errs)
+            xp = xp.reshape(Tn, Bn, 4 * H)
+            for reverse in reverses:
+                y_k, c_k, g4_k = L.lstm_fwd_scan(xp, whh, bias, lens,
+                                                 reverse)
+                y_p, c_p, g4_p = L.lstm_fwd_scan_plain(xp, whh, bias,
+                                                       lens, reverse)
+                dxp_k, db_k = L.lstm_bwd_scan(whh, lens, c_p, g4_p, gy,
+                                              reverse)
+                dxp_p, db_p = L.lstm_bwd_scan_plain(whh, lens, c_p, g4_p,
+                                                    gy, reverse)
+                tag = ("r:" if reverse[0] else "f:") + label
+                for kernel, what, got, ref, lim in (
+                        ("lstm_fwd_scan", "y", y_k, y_p, tol),
+                        ("lstm_fwd_scan", "c", c_k, c_p, tol_state),
+                        ("lstm_fwd_scan", "g4", g4_k, g4_p, tol),
+                        ("lstm_bwd_scan", "dxp", dxp_k, dxp_p, tol),
+                        ("lstm_bwd_scan", "db", db_k, db_p, tol_state)):
+                    check(kernel, f"{what}:{tag}", dt, D, got, ref, lim, errs)
+        require_designs(L, "cluster" if dt == bf16 else "cooperative", dt,
+                        f"{str(dt)[6:]} one direction, {label}, B={Bn} "
+                        f"T={Tn}", Bn=Bn)
+
+    one = (False,)
+    xp = (randn(T, B, 4 * H, dt=f32) * 0.5)
+    whh, bias = uniform(1, H, 4 * H), uniform(1, 4 * H)
+    gy = randn(T, B, H, dt=f32)
+    _, c, g4 = L.lstm_fwd_scan(xp, whh, bias, lengths, one)
+    # Bounds in f32 I/O, one direction: xp, c, g4 and gy are read on valid
+    # frames only, y, c, g4 and dxp written on all of them; the recurrent
+    # product is 2 * H * 4H operations per valid frame, on the f32 FMA
+    # pipes (no tensor cores in f32).
+    nv, M = float(lengths.sum()), T * B
+    ops = 2 * nv * H * 4 * H
+    wts = (H * 4 * H + 4 * H) * 4
+    fwd = record(
+        time_ms(lambda: L.lstm_fwd_scan(xp, whh, bias, lengths, one), 10),
+        time_ms(lambda: L.lstm_fwd_scan_plain(xp, whh, bias, lengths, one),
+                1, warmup=1),
+        nv * 4 * H * 4 + wts + M * (H + H + 4 * H) * 4, ops, f32)
+    bwd = record(
+        time_ms(lambda: L.lstm_bwd_scan(whh, lengths, c, g4, gy, one), 10),
+        time_ms(lambda: L.lstm_bwd_scan_plain(whh, lengths, c, g4, gy, one),
+                1, warmup=1),
+        wts + nv * (H + 4 * H + H) * 4 + M * 4 * H * 4 + 4 * H * 4, ops, f32)
+    print(f"[3] time lstm scans float32 one direction (cooperative): forward "
+          f"kernel {fwd['ms']:.4f} ms ({fwd['ms'] * 1e3 / T:.2f} us per step)"
+          f", plain {fwd['plain_ms']:.4f} ms, f32 bound "
+          f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']}); backward kernel "
+          f"{bwd['ms']:.4f} ms ({bwd['ms'] * 1e3 / T:.2f} us per step), plain"
+          f" {bwd['plain_ms']:.4f} ms, f32 bound {bwd['bound_ms']:.4f} ms "
+          f"({bwd['bound_by']})  [{card}]")
+    for dt in (f32, bf16):
+        time_cudnn_lstm(dev, card, gen, lengths, one, D=VC_DIM, dt=dt)
 
 
 def acoustic_hp(compute_dtype, **gen_overrides):
@@ -764,6 +896,54 @@ def duration_batch(hp, dev):
     return x, y, lh, None
 
 
+def vc_hp(compute_dtype, generator, **gen_overrides):
+    """The vc bundle at full width: 177 -> 177 (59 mel-cepstra with
+    deltas), 3x512 with dropout 0.5 (``In2OutHighwayNet``, the bundle's, or
+    ``In2OutRNNHighwayNet``, a unidirectional LSTM), the 59 -> 2x256 -> 1
+    discriminator on the static mel-cepstra alone, dense MLPG, Adagrad lr
+    0.01."""
+    from gantts_tpu_torch import hparams
+
+    hp = hparams.vc.copy()
+    hp.compute_dtype = compute_dtype
+    hp.generator = generator
+    hp.generator_params.update(in_dim=VC_DIM, out_dim=VC_DIM,
+                               **gen_overrides)
+    return hp
+
+
+def in2out_param_count(generator):
+    """Parameters of a full-width In2Out generator (3x512, 177 -> 177,
+    static 59), from its shapes: the gate T (static x static), then an MLP
+    trunk H_i and last_linear, or a unidirectional LSTM (w_ih, w_hh, two
+    biases a layer) and hidden2out."""
+    ins = [VC_DIM, H, H]
+    if generator == "In2OutHighwayNet":
+        trunk = sum(d * H + H for d in ins)
+    else:
+        trunk = sum(d * 4 * H + H * 4 * H + 2 * 4 * H for d in ins)
+    return mlp_param_count([VC_STATIC, VC_STATIC]) + trunk + \
+        mlp_param_count([H, VC_DIM])
+
+
+def mlp_param_count(dims):
+    return sum(a * b + b for a, b in zip(dims, dims[1:]))
+
+
+def vc_batch(hp, dev):
+    """Phase 4e/4f's batch: B=20 x T=512 frames of normalized features
+    (177 in, 177 out, standard normal), the lengths of bench.py:103 (an
+    assumption for a VC corpus, see PERF.md section 4), and the dense MLPG
+    matrix."""
+    from gantts_tpu_torch.core.windows import unit_variance_mlpg_matrix
+
+    rs = np.random.RandomState(0)
+    x = torch.as_tensor(rs.randn(B, T, VC_DIM).astype(np.float32), device=dev)
+    y = torch.as_tensor(rs.randn(B, T, VC_DIM).astype(np.float32), device=dev)
+    R = torch.as_tensor(unit_variance_mlpg_matrix(hp.windows, T), device=dev)
+    return x, y, bench_lengths(rs), R
+
+
 def make_trainer(hp, dev):
     from gantts_tpu_torch.train import GanTrainer, StepConfig
 
@@ -776,22 +956,25 @@ def make_trainer(hp, dev):
 
 def phase_main_path(dev, card, tag, hp, per_step, n_expected, make_batch,
                     unit):
-    """Phase 4 (``tag`` "4", "4b", "4c" or "4d"): full-width bf16 training
+    """Phase 4 (``tag`` "4" to "4f"): full-width bf16 training
     steps through the kernels.  ``per_step``: the launches of each kernel
-    that one step must make; ``n_expected``: the generator's parameter
-    count; ``make_batch(hp, dev)``: (x, y, host lengths, R); ``unit``: what
-    one time step of the batch is (frames or phones)."""
+    that one step must make; ``n_expected``: the parameter counts of the
+    generator and the discriminator (None: not checked); ``make_batch(hp,
+    dev)``: (x, y, host lengths, R); ``unit``: what one time step of the
+    batch is (frames or phones)."""
     from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
     from gantts_tpu_torch.train.setup import init_models_and_states
 
     model_g, model_d, _, _, gstate, dstate = init_models_and_states(
         hp, seed=0, device=dev)
-    n_params = sum(p.numel() for p in model_g.parameters())
-    print(f"[{tag}] {hp.generator} generator {n_params} parameters, "
-          f"discriminator {sum(p.numel() for p in model_d.parameters())}")
-    if n_expected is not None and n_params != n_expected:
-        fail(f"{hp.generator} has {n_params} parameters, its shapes give "
-             f"{n_expected}")
+    n_params = [sum(p.numel() for p in m.parameters())
+                for m in (model_g, model_d)]
+    print(f"[{tag}] {hp.generator} generator {n_params[0]} parameters, "
+          f"discriminator {n_params[1]}")
+    for name, n, want in zip((hp.generator, hp.discriminator), n_params,
+                             n_expected):
+        if want is not None and n != want:
+            fail(f"{name} has {n} parameters, its shapes give {want}")
     trainer = make_trainer(hp, dev)
     x, y, lh, R = make_batch(hp, dev)
     lengths = torch.as_tensor(lh, device=dev)
@@ -832,7 +1015,7 @@ def phase_main_path(dev, card, tag, hp, per_step, n_expected, make_batch,
                  f"expected {per_step[name] * STEPS}")
     ms = dt / STEPS * 1e3
     fps = float(lh.sum()) * STEPS / dt
-    print(f"[{tag}] tts_{hp.name} {hp.generator} step B={x.shape[0]} "
+    print(f"[{tag}] {hp.name} {hp.generator} step B={x.shape[0]} "
           f"T={x.shape[1]} bf16: {ms:.3f} ms/step, {fps:.1f} valid {unit}/s, "
           f"peak memory {peak} bytes ({peak / 2**30:.3f} GiB)  [{card}]")
 
@@ -928,8 +1111,8 @@ def phase_profile(tag, run_steps, ms_unprofiled, card):
     return set(per_name)
 
 
-def phase_small_step(dev, tag, hp):
-    """Phase 5 (``tag`` "5", "5b", "5c" or "5d"): a small float32 step
+def phase_small_step(dev, tag, hp, Ts=64, Bs=4, probe=None):
+    """Phase 5 (``tag`` "5" to "5e"): a small float32 step
     (dropout off) on the card against the same step on the CPU, from the
     same weights.
 
@@ -945,14 +1128,25 @@ def phase_small_step(dev, tag, hp):
     readings on an H100 (700 W): the largest sound gaps were 2.7e-7
     (pre-update) and 7.1e-6 (post-update), the control's 3.9e-5 and
     5.9e-3.  The same limits hold the LSTMRNN step (5b), the
-    unidirectional SRU step (5c) and the tts_duration step (5d: 416 -> 5,
+    unidirectional SRU step (5c), the tts_duration step (5d: 416 -> 5,
     no MLPG matrix, the discriminator conditioned on the input, Adam,
-    whose first update is likewise about +-lr * sign(g))."""
+    whose first update is likewise about +-lr * sign(g)) and the vc step
+    (5e: 177 -> 177 through an In2OutRNNHighwayNet, which applies MLPG
+    itself, the discriminator on the 59 static mel-cepstra).
+
+    The batch is Bs x Ts frames.  ``probe``, where given, computes
+    tensors from the generator on the same batch before the step; each is
+    held to PROBE_RTOL of its scale, and the control must exceed that
+    limit in the probe.  5e needs one: the In2Out highway passes the input
+    statics through exactly, so a TF32 slip moves its losses far less
+    than a generic generator's (at 4 x 64 the control's largest loss gap
+    read 3.41e-6, barely over PRE_RTOL, on an NVIDIA H100 80GB HBM3,
+    700 W), while in2out_probe reads the generator's own term and the
+    gradients the slip reaches directly."""
     from gantts_tpu_torch.core.windows import unit_variance_mlpg_matrix
     from gantts_tpu_torch.train.setup import init_models_and_states
 
     hp.discriminator_params.update(dropout=0.0)
-    Ts, Bs = 64, 4
     rs = np.random.RandomState(1)
     gp = hp.generator_params
     batch = [rs.rand(Bs, Ts, gp["in_dim"]).astype(np.float32),
@@ -960,7 +1154,7 @@ def phase_small_step(dev, tag, hp):
              np.r_[rs.randint(Ts // 2, Ts, Bs - 1), Ts].astype(np.int32)]
     R = (unit_variance_mlpg_matrix(hp.windows, Ts)
          if any(hp.has_dynamic_features) else None)
-    states = []
+    states, probes = [], []
 
     def run(device, tf32):
         _, _, _, _, gstate, dstate = init_models_and_states(hp, seed=1,
@@ -976,6 +1170,10 @@ def phase_small_step(dev, tag, hp):
         R_d = None if R is None else torch.as_tensor(R, device=device)
         torch.backends.cuda.matmul.allow_tf32 = tf32
         try:
+            if probe is not None:
+                probes.append({k: v.detach().float().cpu() for k, v in
+                               probe(gstate.model, x, y, lengths,
+                                     R_d).items()})
             _, _, out = make_trainer(hp, device).step(gstate, dstate, x, y,
                                                       lengths, R_d, 1.0)
             out = {k: float(v) for k, v in out.items()}
@@ -1005,9 +1203,51 @@ def phase_small_step(dev, tag, hp):
             worst, worst_control = max(worst, g), max(worst_control, gc)
     print(f"[{tag}] {hp.generator} pre-update: largest gap {worst:.2e}, "
           f"limit {PRE_RTOL:.0e}, control's largest gap {worst_control:.2e}")
-    if not worst_control > PRE_RTOL:
+    if probe is not None:
+        worst_control = check_probe(tag, *probes)
+        if not worst_control > PROBE_RTOL:
+            fail("small step: the TF32 control stays within the probe's "
+                 "limit, so the comparison cannot see a TF32 matmul")
+    elif not worst_control > PRE_RTOL:
         fail("small step: the TF32 control stays within the limit, so the "
              "comparison cannot see a TF32 matmul")
+
+
+def check_probe(tag, cpu, card, control):
+    """Hold each probe tensor of the card to the CPU's, as max|card - cpu|
+    / max|cpu|, at PROBE_RTOL; returns the control's largest gap."""
+    worst, worst_control = 0.0, 0.0
+    for k, ref in cpu.items():
+        scale = max(float(ref.abs().max()), 1e-30)
+        g = float((card[k] - ref).abs().max()) / scale
+        gc = float((control[k] - ref).abs().max()) / scale
+        ok = g <= PROBE_RTOL
+        print(f"[{tag}] probe {k:32s} gap={g:.2e} limit={PROBE_RTOL:.0e} "
+              f"{'ok' if ok else 'FAIL'}  control(tf32) gap={gc:.2e}")
+        if not ok:
+            fail(f"small step: the probe's {k} on the card differs from the "
+                 f"CPU")
+        worst, worst_control = max(worst, g), max(worst_control, gc)
+    print(f"[{tag}] probe: largest gap {worst:.2e}, limit "
+          f"{PROBE_RTOL:.0e}, control's largest gap {worst_control:.2e}")
+    return worst_control
+
+
+def in2out_probe(model, x, y, lengths, R):
+    """5e's probe: an In2Out generator's own term y_static - x_static on
+    the valid frames, and every parameter's gradient of the squared error
+    of y_static against y's statics there."""
+    model.zero_grad(set_to_none=True)
+    _, y_static = model(x, R, lengths)
+    valid = (torch.arange(x.shape[1], device=x.device)[None]
+             < lengths[:, None])[..., None]
+    out = {"y_static - x_static": ((y_static - x[..., :VC_STATIC])
+                                   * valid).detach()}
+    (((y_static - y[..., :VC_STATIC]) * valid) ** 2).sum().backward()
+    out.update({f"grad {n}": p.grad.clone()
+                for n, p in model.named_parameters() if p.grad is not None})
+    model.zero_grad(set_to_none=True)
+    return out
 
 
 def phase_linear_kernels(dev, card, errs):
@@ -1171,98 +1411,135 @@ def write_duration_corpus(dst, num=96, phones=(20, 81), seed=0):
         np.save(os.path.join(dst, "Y_duration", name), dur.astype(np.float32))
 
 
-def phase_curriculum(card):
-    """Phase 7: ``python -m gantts_tpu_torch.curriculum``'s main() with the
-    full-width tts_duration bundle (bf16 matmuls) on a synthetic corpus of
-    96 phone sequences (416 -> 5 dims) in a temporary directory, with
-    train_gan.sh's default switches: stages 1-3 and 5 (baseline to epoch 2,
-    generator warm-up 1 epoch, discriminator warm-up 1 epoch, adversarial
-    epoch 2 from both warm-ups).  Each stage's launches are read around its
-    call of the training main(); each must match what its steps need (12
-    sru_proj_gemm and 12 sru_fwd_scan per step, 12 sru_bwd_scan per step
-    that trains the generator).  Checks every checkpoint and that the logged
-    values are finite.  The command lines' own output goes to a log, whose
-    tail is printed if a stage fails.  Returns the launch counts of all
-    stages."""
+def run_curriculum(tag, argv, env, plan, per_step, per_train_step, n_steps):
+    """``python -m gantts_tpu_torch.curriculum``'s main() on ``argv`` with
+    the switches of ``env``, every plain version refused; each stage's
+    launches are read around its call of the training main().  ``plan``:
+    (stage, epochs, trains the generator) of each stage that runs;
+    ``per_step``: the launches of each kernel in every step (train and
+    test), ``per_train_step``: those in each train step that trains the
+    generator; ``n_steps``: the steps of an epoch's train and test phases.
+    The command lines' own output goes to a log, whose tail is printed if a
+    stage fails.  Returns the launch counts of all stages."""
     from unittest import mock
 
     from gantts_tpu_torch import curriculum
-    from gantts_tpu_torch.data import NPYDataSource
     from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
     from gantts_tpu_torch.train import __main__ as train_cli
 
     real_main, stages, totals = train_cli.main, [], {}
 
-    def counted_main(argv):
+    def counted_main(stage_argv):
         reset_launch_counts()
         t0 = time.perf_counter()
-        rc = real_main(argv)
+        rc = real_main(stage_argv)
         torch.cuda.synchronize()
         stages.append((rc, time.perf_counter() - t0, dict(launch_counts)))
         return rc
 
-    switches = {"W_D", "ADV_HPARAMS"} | {
+    with tempfile.NamedTemporaryFile("w+", suffix=".log") as out:
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out), plain_versions_forbidden(), \
+                    mock.patch.object(train_cli, "main", counted_main):
+                rc = curriculum.main(argv, env=env)
+        except BaseException:
+            out.flush()
+            out.seek(0)
+            print("".join(out.readlines()[-40:]))
+            raise
+        dt = time.perf_counter() - t0
+    print(f"[{tag}] curriculum exit {rc}, {len(stages)} stages, {dt:.2f} s "
+          f"({n_steps['train']} train and {n_steps['test']} test steps an "
+          f"epoch)")
+    if rc != 0 or len(stages) != len(plan):
+        fail(f"the curriculum exited {rc} after {len(stages)} stages")
+    for (name, epochs, trains_g), (stage_rc, secs, counts) in zip(plan,
+                                                                  stages):
+        steps = epochs * (n_steps["train"] + n_steps["test"])
+        want = {k: n * steps for k, n in per_step.items()}
+        want.update({k: n * epochs * n_steps["train"] * trains_g
+                     for k, n in per_train_step.items()})
+        print(f"[{tag}] stage {name}: exit {stage_rc}, {secs:.2f} s, "
+              f"launches { {k: n for k, n in counts.items() if n} }")
+        for k, n in counts.items():
+            if n != want.get(k, 0):
+                fail(f"stage {name}: {k} launched {n} times, its steps need "
+                     f"{want.get(k, 0)}")
+            totals[k] = totals.get(k, 0) + n
+    return totals
+
+
+def read_logs(tag, ck, stages):
+    """Each stage directory's logged series; fails unless every value is
+    finite."""
+    rows = {}
+    for stage in stages:
+        with open(os.path.join(ck, stage, "log", "scalars.jsonl")) as f:
+            rows[stage] = [json.loads(line) for line in f]
+        bad = [r for r in rows[stage] if not math.isfinite(r["value"])]
+        if bad or not rows[stage]:
+            fail(f"[{tag}] {stage} log: {len(bad)} of {len(rows[stage])} "
+                 f"values not finite ({bad[:3]})")
+    return rows
+
+
+def require_checkpoints(ck, paths):
+    for path in paths:
+        if not os.path.exists(os.path.join(ck, path)):
+            fail(f"no checkpoint {path}")
+
+
+def epoch_steps(xdir, batch_size):
+    from gantts_tpu_torch.data import NPYDataSource
+
+    return {phase: -(-len(NPYDataSource(xdir, train=phase == "train")
+                          .collect_files()) // batch_size)
+            for phase in ("train", "test")}
+
+
+def curriculum_env(**switches):
+    """The process environment without the curriculum's switches, then
+    ``switches``."""
+    from gantts_tpu_torch import curriculum
+
+    names = {"W_D", "ADV_HPARAMS"} | {
         switch for switch, _ in curriculum.STAGES.values()}
-    env = {k: v for k, v in os.environ.items() if k not in switches}
+    env = {k: v for k, v in os.environ.items() if k not in names}
+    env.update(switches)
+    return env
+
+
+def phase_curriculum(card):
+    """Phase 7: the curriculum command with the full-width tts_duration
+    bundle (bf16 matmuls) on a synthetic corpus of 96 phone sequences
+    (416 -> 5 dims) in a temporary directory, with train_gan.sh's default
+    switches: stages 1-3 and 5 (baseline to epoch 2, generator warm-up 1
+    epoch, discriminator warm-up 1 epoch, adversarial epoch 2 from both
+    warm-ups).  Each stage must launch 12 sru_proj_gemm and 12 sru_fwd_scan
+    per step, 12 sru_bwd_scan per step that trains the generator.  Checks
+    every checkpoint and that the logged values are finite.  Returns the
+    launch counts of all stages."""
     with tempfile.TemporaryDirectory() as tmp:
         write_duration_corpus(tmp)
         xdir, ydir = (os.path.join(tmp, d) for d in ("X_duration",
                                                      "Y_duration"))
-        ck, out_path = os.path.join(tmp, "ck"), os.path.join(tmp, "out.log")
-        n_steps = {phase: -(-len(NPYDataSource(xdir, train=phase == "train")
-                                 .collect_files()) // DUR_B)
-                   for phase in ("train", "test")}
-        argv = ["tts_duration", "compute_dtype=bfloat16", xdir, ydir, ck,
-                "1", "1", "1", "2"]
-        t0 = time.perf_counter()
-        with open(out_path, "w") as out:
-            try:
-                with contextlib.redirect_stdout(out), \
-                        plain_versions_forbidden(), \
-                        mock.patch.object(train_cli, "main", counted_main):
-                    rc = curriculum.main(argv, env=env)
-            except BaseException:
-                out.flush()
-                with open(out_path) as f:
-                    print("".join(f.readlines()[-40:]))
-                raise
-        dt = time.perf_counter() - t0
-        print(f"[7] curriculum exit {rc}, {len(stages)} stages, {dt:.2f} s "
-              f"({n_steps['train']} train and {n_steps['test']} test steps "
-              f"an epoch)")
-        if rc != 0 or len(stages) != 4:
-            fail(f"the curriculum exited {rc} after {len(stages)} stages")
-        # (stage, epochs, trains the generator): stages 1, 2, 3 and 5
+        ck = os.path.join(tmp, "ck")
         plan = [("baseline", 2, True), ("generator_warmup", 1, True),
                 ("discriminator_warmup", 1, False), ("adversarial", 1, True)]
-        for (name, epochs, trains_g), (stage_rc, secs, counts) in zip(
-                plan, stages):
-            steps = epochs * (n_steps["train"] + n_steps["test"])
-            want = {"sru_proj_gemm": 12 * steps, "sru_fwd_scan": 12 * steps,
-                    "sru_bwd_scan": 12 * epochs * n_steps["train"] * trains_g}
-            print(f"[7] stage {name}: exit {stage_rc}, {secs:.2f} s, launches "
-                  f"{ {k: n for k, n in counts.items() if n} }")
-            for k, n in counts.items():
-                if n != want.get(k, 0):
-                    fail(f"stage {name}: {k} launched {n} times, its steps "
-                         f"need {want.get(k, 0)}")
-                totals[k] = totals.get(k, 0) + n
-        for path in ("baseline/checkpoint_epoch2_Generator.pth",
-                     "gan/checkpoint_epoch1_Generator.pth",
-                     "gan/checkpoint_epoch1_Discriminator.pth",
-                     "gan/checkpoint_epoch2_Generator.pth",
-                     "gan/checkpoint_epoch2_Discriminator.pth"):
-            if not os.path.exists(os.path.join(ck, path)):
-                fail(f"no checkpoint {path}")
-        rows = {}
-        for stage in ("baseline", "gan"):
-            with open(os.path.join(ck, stage, "log", "scalars.jsonl")) as f:
-                rows[stage] = [json.loads(line) for line in f]
+        totals = run_curriculum(
+            "7", ["tts_duration", "compute_dtype=bfloat16", xdir, ydir, ck,
+                  "1", "1", "1", "2"], curriculum_env(), plan,
+            dict(sru_proj_gemm=12, sru_fwd_scan=12), dict(sru_bwd_scan=12),
+            epoch_steps(xdir, DUR_B))
+        require_checkpoints(ck, (
+            "baseline/checkpoint_epoch2_Generator.pth",
+            "gan/checkpoint_epoch1_Generator.pth",
+            "gan/checkpoint_epoch1_Discriminator.pth",
+            "gan/checkpoint_epoch2_Generator.pth",
+            "gan/checkpoint_epoch2_Discriminator.pth"))
+        rows = read_logs("7", ck, ("baseline", "gan"))
     for stage, logged in rows.items():
-        bad = [r for r in logged if not math.isfinite(r["value"])]
-        if bad or not logged:
-            fail(f"{stage} log: {len(bad)} of {len(logged)} values not "
-                 f"finite ({bad[:3]})")
         for r in logged:
             if r["tag"] == "train frames_per_sec":
                 print(f"[7] {stage} epoch {r['step']}: {r['value']:.1f} "
@@ -1275,6 +1552,266 @@ def phase_curriculum(card):
     return totals
 
 
+def synth_utterance(rs, n_frames, f0_base):
+    """A speech-like int16 waveform of ``n_frames`` 5 ms frames at VC_FS:
+    segments of 60-155 ms, three in four voiced (a pulse train at a falling
+    F0 with a 5 Hz vibrato) and the rest noise, through a cascade of three
+    formant resonators whose targets change from segment to segment."""
+    from scipy.signal import lfilter
+
+    n = n_frames * (VC_FS // 200)
+    out = np.empty(n)
+    zi = [np.zeros(2) for _ in range(3)]
+    t, phase = 0, 0.0
+    while t < n:
+        seg = min(n - t, int(rs.randint(12, 32)) * (VC_FS // 200))
+        if rs.rand() < 0.75:
+            i = np.arange(t, t + seg)
+            f0 = f0_base * (1 - 0.2 * i / n) * (
+                1 + 0.03 * np.sin(2 * np.pi * 5 * i / VC_FS))
+            track = phase + np.cumsum(f0 / VC_FS)
+            src = np.diff(np.floor(np.r_[phase, track]))  # a pulse a period
+            phase = track[-1]
+        else:
+            src = 0.3 * rs.randn(seg)
+        for k, (lo, hi, bw) in enumerate(((300, 800, 90), (900, 2200, 110),
+                                          (2300, 3200, 170))):
+            r = np.exp(-np.pi * bw / VC_FS)
+            th = 2 * np.pi * rs.uniform(lo, hi) / VC_FS
+            src, zi[k] = lfilter([1 - r], [1, -2 * r * np.cos(th), r * r],
+                                 src, zi=zi[k])
+        out[t:t + seg] = src
+        t += seg
+    out += 1e-3 * np.abs(out).max() * rs.randn(n)
+    return (out / np.abs(out).max() * 2 ** 14).astype(np.int16)
+
+
+def write_vc_corpus(dst, num=30, frames=(256, 501), seed=0):
+    """A parallel VC corpus in the layout of the training and evaluation
+    command lines: ``dst/wav/utt_NNNN.wav`` (int16, VC_FS) from
+    synth_utterance, ``dst/X/utt_NNNN.npy`` (T, 177) the port's own analysis
+    of that wav as evaluation_vc reads it (WORLD F0 and envelope, 59
+    mel-cepstra without the power term, modulation-spectrum smoothing,
+    deltas), and ``dst/Y`` the fixed warp 0.9 X + 0.05, a stand-in for a
+    second speaker's aligned features.  Frames drawn from ``frames`` (the
+    4e assumption: bench.py's 256-512).  Returns the analysis's wall
+    seconds."""
+    from scipy.io import wavfile
+
+    from gantts_tpu_torch import hparams
+    from gantts_tpu_torch import preprocessing as P
+    from gantts_tpu_torch.core.windows import delta_features
+    from gantts_tpu_torch.frontend import sptk, world
+    from gantts_tpu_torch.utils.analysis import run_utterance_jobs
+
+    rs = np.random.RandomState(seed)
+    for d in ("wav", "X", "Y"):
+        os.makedirs(os.path.join(dst, d), exist_ok=True)
+    jobs = [(f"utt_{i:04d}", synth_utterance(
+        rs, int(rs.randint(*frames)), 90.0 + 60.0 * rs.rand()))
+        for i in range(num)]
+
+    def analyze(name, x):
+        wavfile.write(os.path.join(dst, "wav", name + ".wav"), VC_FS, x)
+        x = x.astype(np.float64)
+        f0, tp = world.dio(x, VC_FS, frame_period=5)
+        f0 = world.stonemask(x, f0, tp, VC_FS)
+        sp = world.cheaptrick(x, f0, tp, VC_FS)
+        mc = sptk.sp2mc(sp, order=VC_STATIC,
+                        alpha=sptk.mcepalpha(VC_FS))[:, 1:]
+        mc = P.modspec_smoothing(mc, 200.0, cutoff=50)
+        src = delta_features(mc, hparams.vc.windows).astype(np.float32)
+        np.save(os.path.join(dst, "X", name + ".npy"), src)
+        np.save(os.path.join(dst, "Y", name + ".npy"), 0.9 * src + 0.05)
+
+    t0 = time.perf_counter()
+    run_utterance_jobs(analyze, jobs, 4)
+    return time.perf_counter() - t0
+
+
+def phase_vc_curriculum(card, tmp):
+    """Phase 8: the curriculum command with the vc bundle in its own
+    float32 and ``generator=In2OutRNNHighwayNet`` at full width (3x512
+    unidirectional LSTM, 177 -> 177), on write_vc_corpus's 30 utterances in
+    ``tmp``, through all five stages (``RUN_SPOOFING_MODEL=1``): baseline to
+    epoch 2, generator warm-up 1 epoch, discriminator warm-up 1 epoch, the
+    spoofing model 2 epochs against the baseline generator, adversarial
+    epoch 2 with the spoofing model as its reference discriminator.  Each
+    stage must launch 3 sru_proj_gemm and 3 lstm_fwd_scan per step (the
+    f32 cooperative kernels), 3 lstm_bwd_scan per step that trains the
+    generator.  Checks every checkpoint, that the logged values are finite
+    and that stage 5 logged the spoofing rate.  Returns the launch counts
+    of all stages and the final generator's checkpoint."""
+    from gantts_tpu_torch import hparams
+    from gantts_tpu_torch.frontend import native
+
+    secs = write_vc_corpus(tmp)
+    print(f"[8] corpus: 30 utterances analysed in {secs:.2f} s by the "
+          f"{native.engine()} front end")
+    xdir, ydir = (os.path.join(tmp, d) for d in ("X", "Y"))
+    ck = os.path.join(tmp, "ck")
+    plan = [("baseline", 2, True), ("generator_warmup", 1, True),
+            ("discriminator_warmup", 1, False), ("spoofing_model", 2, False),
+            ("adversarial", 1, True)]
+    totals = run_curriculum(
+        "8", ["vc", "generator=In2OutRNNHighwayNet", xdir, ydir, ck, "1",
+              "1", "2", "2"], curriculum_env(RUN_SPOOFING_MODEL="1"), plan,
+        dict(sru_proj_gemm=3, lstm_fwd_scan=3), dict(lstm_bwd_scan=3),
+        epoch_steps(xdir, hparams.vc.batch_size))
+    final = "gan/checkpoint_epoch2_Generator.pth"
+    require_checkpoints(ck, (
+        "baseline/checkpoint_epoch2_Generator.pth",
+        "gan/checkpoint_epoch1_Generator.pth",
+        "gan/checkpoint_epoch1_Discriminator.pth",
+        "spoofing_model/checkpoint_epoch2_Discriminator.pth", final,
+        "gan/checkpoint_epoch2_Discriminator.pth"))
+    rows = read_logs("8", ck, ("baseline", "gan", "spoofing_model"))
+    spoof = {r["tag"]: r["value"] for r in rows["gan"]
+             if r["tag"].endswith("spoofing rate")}
+    print(f"[8] stage 5's spoofing rate (frames the reference discriminator "
+          f"takes for natural): {spoof}")
+    if set(spoof) != {"train spoofing rate", "test spoofing rate"} or not \
+            all(0 <= v <= 1 for v in spoof.values()):
+        fail("stage 5 did not log the spoofing rate of both phases")
+    for stage, logged in rows.items():
+        for r in logged:
+            if r["tag"] == "train frames_per_sec":
+                print(f"[8] {stage} epoch {r['step']}: {r['value']:.1f} "
+                      f"valid frames/s in the train phase  [{card}]")
+            elif r["tag"] == "train mcd metric":
+                print(f"[8] {stage} epoch {r['step']}: train mcd "
+                      f"{r['value']:.4f} dB")
+    print(f"[8] {sum(len(r) for r in rows.values())} logged values, all "
+          f"finite; checkpoints of all five stages written")
+    return totals, os.path.join(ck, final)
+
+
+def phase_vc_eval(card, tmp, checkpoint):
+    """Phase 9: ``python -m gantts_tpu_torch.evaluation_vc``'s main() with
+    phase 8's final generator on the card, over the wavs of the corpus's
+    eval and test files, ``--workers=1``: with ``--diffvc`` (the MLSA
+    filter on the source) and without (WORLD synthesis).  Each utterance
+    must launch 3 sru_proj_gemm and 3 lstm_fwd_scan and no lstm_bwd_scan;
+    each waveform must be finite and not silent, and analysis.json
+    written.  Prints the front end's engine and the seconds an utterance
+    takes, then holds the first utterance's prediction to the CPU's
+    (check_vc_prediction).  Returns the launch counts of both runs."""
+    from scipy.io import wavfile
+
+    from gantts_tpu_torch import evaluation_vc, synthesis
+    from gantts_tpu_torch.frontend import native
+    from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    real, waves, totals = synthesis.vc_from_waveform, [], {}
+    real_apply, first = synthesis.apply_vc_model, []
+
+    def recorded(*args, **kwargs):
+        out = real(*args, **kwargs)
+        waves.append(out[0])
+        return out
+
+    def recorded_apply(model, mc_scaled, hp):
+        out = real_apply(model, mc_scaled, hp)
+        if not first:
+            first.append((model, mc_scaled.copy(), hp, out.copy()))
+        return out
+
+    names = [os.path.basename(p) for sub in (False, True)
+             for p in evaluation_vc.get_wav_files(tmp, "", test=sub)]
+    for diffvc in (True, False):
+        out_dir = os.path.join(tmp, f"out_diffvc{int(diffvc)}")
+        argv = [checkpoint, tmp, os.path.join(tmp, "wav"), out_dir,
+                "--hparams=generator=In2OutRNNHighwayNet", "--workers=1",
+                "--device=cuda"] + ["--diffvc"] * diffvc
+        waves.clear()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null), \
+                plain_versions_forbidden():
+            synthesis.vc_from_waveform = recorded
+            synthesis.apply_vc_model = recorded_apply
+            try:
+                rc = evaluation_vc.main(argv)
+            finally:
+                synthesis.vc_from_waveform = real
+                synthesis.apply_vc_model = real_apply
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / len(names)
+        counts = {k: n for k, n in launch_counts.items()}
+        print(f"[9] evaluation_vc {'--diffvc' if diffvc else '(WORLD)'}: "
+              f"exit {rc}, {len(waves)} utterances, {secs:.3f} s an "
+              f"utterance with the {native.engine()} front end; launches "
+              f"{ {k: n for k, n in counts.items() if n} }  [{card}]")
+        want = dict(sru_proj_gemm=3 * len(names),
+                    lstm_fwd_scan=3 * len(names))
+        if rc != 0 or len(waves) != len(names):
+            fail(f"evaluation_vc exited {rc} after {len(waves)} of "
+                 f"{len(names)} utterances")
+        for k, n in counts.items():
+            if n != want.get(k, 0):
+                fail(f"evaluation_vc: {k} launched {n} times, its "
+                     f"utterances need {want.get(k, 0)}")
+            totals[k] = totals.get(k, 0) + n
+        for w in waves:
+            if not np.isfinite(w).all() or np.abs(w).max() < 100:
+                fail("a converted waveform is not finite or is silent")
+        for sub, n in (("eval", len(names) - 5), ("test", 5)):
+            got = sorted(os.listdir(os.path.join(out_dir, sub)))
+            if len(got) != n:
+                fail(f"{out_dir}/{sub} holds {len(got)} wavs, expected {n}")
+            fs, y = wavfile.read(os.path.join(out_dir, sub, got[0]))
+            if fs != VC_FS or y.dtype != np.int16:
+                fail(f"{got[0]}: {fs} Hz {y.dtype}, expected int16 at "
+                     f"{VC_FS} Hz")
+        with open(os.path.join(out_dir, "analysis.json")) as f:
+            report = json.load(f)
+        if not math.isfinite(report["gv_ratio"]):
+            fail(f"analysis.json: gv_ratio {report['gv_ratio']}")
+        print(f"[9] peaks {min(np.abs(w).max() for w in waves):.1f} to "
+              f"{max(np.abs(w).max() for w in waves):.1f}; analysis.json "
+              f"gv_ratio {report['gv_ratio']:.4f}")
+    check_vc_prediction(*first[0])
+    return totals
+
+
+def check_vc_prediction(model, mc_scaled, hp, y_card):
+    """Phase 9's first utterance: the static mel-cepstra the card predicted
+    inside evaluation_vc against synthesis.apply_vc_model on a CPU copy of
+    the generator, same input, and against the card with TF32 matmuls as a
+    control.  An In2Out generator passes its input statics through exactly
+    (y = x_static + gate * MLPG(G(x))), so both sides compare y - x_static,
+    the part the generator computes, as max|card - cpu| / max|cpu|: limit
+    VC_Y_RTOL, which the control must exceed."""
+    import copy
+
+    from gantts_tpu_torch import synthesis
+
+    x_static = mc_scaled[:, :VC_STATIC]
+    y_cpu = synthesis.apply_vc_model(copy.deepcopy(model).cpu(), mc_scaled,
+                                     hp)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        y_control = synthesis.apply_vc_model(model, mc_scaled, hp)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ref = y_cpu - x_static
+    scale = float(np.abs(ref).max())
+
+    def gap(y):
+        return float(np.abs((y - x_static) - ref).max()) / scale
+
+    g, gc = gap(y_card), gap(y_control)
+    print(f"[9] first utterance ({mc_scaled.shape[0]} frames): card against "
+          f"CPU, y_static - x_static gap {g:.2e} of scale {scale:.4f}, limit "
+          f"{VC_Y_RTOL:.0e} {'ok' if g <= VC_Y_RTOL else 'FAIL'}; "
+          f"control(tf32) gap {gc:.2e}")
+    if not g <= VC_Y_RTOL:
+        fail("evaluation_vc: the card's prediction differs from the CPU's")
+    if not gc > VC_Y_RTOL:
+        fail("evaluation_vc: the TF32 control stays within the limit, so "
+             "the comparison cannot see a TF32 matmul")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this script drives the port on a GPU")
@@ -1285,17 +1822,21 @@ def main():
           f"{torch.cuda.device_count()} device(s)")
 
     from gantts_tpu_torch.core import paramgen  # noqa: F401  (TF32 off)
+    from gantts_tpu_torch.frontend import native
     from gantts_tpu_torch.kernels import _build, linear_scan, lstm_scan, \
         sru_scan
 
     print(f"[1] allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32}"
           f" cudnn={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor() as pool:  # one nvcc per source, together
+    # one nvcc per source and the host front end's g++, all together
+    with ThreadPoolExecutor() as pool:
         for f in [pool.submit(m._lib)
-                  for m in (sru_scan, lstm_scan, linear_scan)]:
+                  for m in (sru_scan, lstm_scan, linear_scan)] + [
+                      pool.submit(native.available)]:
             f.result()
     print(f"[2] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    print(f"[2] host front end (WORLD/SPTK): {native.engine()}")
     for name, (secs, log) in _build.build_log.items():
         print(f"[2] nvcc {name}: {secs:.2f} s")
         for line in log.splitlines():
@@ -1308,24 +1849,33 @@ def main():
     recs = phase_kernels(dev, card, errs)
     recs.update(phase_lstm_kernels(dev, card, errs))
     recs.update(phase_linear_kernels(dev, card, errs))
+    phase_vc_lstm_kernels(dev, card, errs)
     none = {k: 0 for k in KERNELS}
+    vc_disc = mlp_param_count([VC_STATIC, 256, 256, 1])
     paths = [("4", acoustic_hp("bfloat16"),
               dict(none, sru_proj_gemm=12, sru_fwd_scan=12, sru_bwd_scan=12),
-              sru_param_count(LIN_DIM, H, 6, OUT_DIM, True), acoustic_batch,
-              "frames"),
+              (sru_param_count(LIN_DIM, H, 6, OUT_DIM, True), None),
+              acoustic_batch, "frames"),
              ("4b", lstm_hp("bfloat16"),
               dict(none, sru_proj_gemm=6, lstm_fwd_scan=6, lstm_bwd_scan=6),
-              lstm_param_count(LIN_DIM, H, 6, OUT_DIM), acoustic_batch,
-              "frames"),
+              (lstm_param_count(LIN_DIM, H, 6, OUT_DIM), None),
+              acoustic_batch, "frames"),
              ("4c", acoustic_hp("bfloat16", bidirectional=False),
               dict(none, sru_proj_gemm=1, sru_fwd_scan=1, sru_bwd_scan=1,
                    linear_recurrence_fwd=5, linear_recurrence_bwd=5),
-              sru_param_count(LIN_DIM, H, 6, OUT_DIM, False),
+              (sru_param_count(LIN_DIM, H, 6, OUT_DIM, False), None),
               acoustic_batch, "frames"),
              ("4d", duration_hp("bfloat16"),
               dict(none, sru_proj_gemm=12, sru_fwd_scan=12, sru_bwd_scan=12),
-              sru_param_count(PHONE_DIM, H, 6, DUR_DIM, True),
-              duration_batch, "phones")]
+              (sru_param_count(PHONE_DIM, H, 6, DUR_DIM, True), None),
+              duration_batch, "phones"),
+             ("4e", vc_hp("bfloat16", "In2OutRNNHighwayNet"),
+              dict(none, sru_proj_gemm=3, lstm_fwd_scan=3, lstm_bwd_scan=3),
+              (in2out_param_count("In2OutRNNHighwayNet"), vc_disc),
+              vc_batch, "frames"),
+             ("4f", vc_hp("bfloat16", "In2OutHighwayNet"), none,
+              (in2out_param_count("In2OutHighwayNet"), vc_disc), vc_batch,
+              "frames")]
     launches = dict(none)
     for tag, hp, per_step, n_expected, make_batch, unit in paths:
         with plain_versions_forbidden():
@@ -1353,13 +1903,21 @@ def main():
         bidirectional=False))
     phase_small_step(dev, "5d", duration_hp(
         "float32", num_hidden=2, hidden_dim=64, dropout=0.0, rnn_dropout=0.0))
+    phase_small_step(dev, "5e", vc_hp(
+        "float32", "In2OutRNNHighwayNet", num_hidden=2, hidden_dim=64,
+        dropout=0.0), probe=in2out_probe)
     for k, n in phase_cli(card).items():
         launches[k] += n
     for k, n in phase_curriculum(card).items():
         launches[k] += n
+    with tempfile.TemporaryDirectory() as tmp:
+        counts, checkpoint = phase_vc_curriculum(card, tmp)
+        for k, n in list(counts.items()) + list(
+                phase_vc_eval(card, tmp, checkpoint).items()):
+            launches[k] += n
 
-    # launches: the main paths' runs, 4, 4b, 4c, 4d, 6 and 7 (sru_proj_gemm
-    # and the SRU scans serve several)
+    # launches: the main paths' runs, 4-4f, 6, 7, 8 and 9 (sru_proj_gemm
+    # and the scans serve several)
     kernels = [dict({"name": k, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[k],
                      "max_abs_err": errs[k]}, **recs[k])

@@ -1,5 +1,6 @@
-"""Differentiable dense MLPG (counterpart of gantts_tpu/core/paramgen.py,
-dense path only; the length-general ``MLPGStencil`` path is not ported yet).
+"""Differentiable MLPG (counterpart of gantts_tpu/core/paramgen.py): the
+dense (T, K*T) R product, or, when R is a ``core.fast_mlpg.MLPGStencil``,
+the length-general stencil operator at each example's true length.
 
 R is applied in exact float32.  On the card PyTorch would otherwise be free
 to run float32 products in TF32, which keeps about three decimal digits and
@@ -14,14 +15,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gantts_tpu_torch.core.fast_mlpg import (
+    MLPGStencil,
+    unit_variance_mlpg_dynamic,
+)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-def unit_variance_mlpg(R, means):
+def unit_variance_mlpg(R, means, lengths=None):
     """Apply the (T, K*T) unit-variance MLPG matrix to (B, T, K*S) or
     (T, K*S) normalized static+dynamic features; returns (B, T, S) or
-    (T, S).  Features are re-laid-out window-major ((K*T, S)) first."""
+    (T, S).  Features are re-laid-out window-major ((K*T, S)) first.
+
+    ``R`` may instead be an ``MLPGStencil``: then ``lengths`` (B,) gives each
+    example's true length, ``means`` may be zero-padded to any T, and the
+    padding comes back zero.  A dense R ignores ``lengths``."""
+    if isinstance(R, MLPGStencil):
+        if lengths is None:
+            raise ValueError("MLPGStencil mode requires per-example lengths")
+        return unit_variance_mlpg_dynamic(R, means, lengths)
     T = R.shape[0]
     K = R.shape[1] // T
     squeeze = means.dim() == 2

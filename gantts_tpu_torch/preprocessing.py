@@ -1,7 +1,8 @@
-"""Normalization stats and scaling on the host (NumPy, float64 where it
-matters): the port's own copy of the part of
-gantts_tpu/preprocessing/__init__.py that training uses (the data pipeline's
-scaling and the stats that ``train/setup.py`` collects and saves)."""
+"""Normalization stats, scaling and trajectory smoothing on the host (NumPy,
+float64 where it matters): the port's own copy of the part of
+gantts_tpu/preprocessing/__init__.py that training and VC synthesis use (the
+data pipeline's scaling, the stats that ``train/setup.py`` collects and
+saves, and the modulation-spectrum smoothing of ``synthesis.py``)."""
 
 from __future__ import annotations
 
@@ -97,3 +98,26 @@ def minmax(dataset, lengths=None):
             data_min = np.minimum(data_min, xmin)
             data_max = np.maximum(data_max, xmax)
     return data_min.astype(np.float64), data_max.astype(np.float64)
+
+
+def modspec(y, n=4096, norm=None):
+    """Modulation spectrum: power of the per-dimension temporal DFT."""
+    s_complex = np.fft.rfft(y, n=n, axis=0, norm=norm)
+    return s_complex.real ** 2 + s_complex.imag ** 2
+
+
+def modspec_smoothing(y, modfs, n=4096, cutoff=50):
+    """Trajectory smoothing by removing modulation frequencies above
+    ``cutoff`` Hz (``nnmnkwii.preprocessing.modspec_smoothing``): a
+    brick-wall low-pass along the time axis of each feature dimension.
+    ``modfs`` is the frame rate (fs / hop_length, 200 Hz at 5 ms frames)."""
+    T = y.shape[0]
+    if n < T:
+        n = 1 << (T - 1).bit_length()  # the next power of two >= T
+    if cutoff >= modfs / 2:
+        return y
+    s = np.fft.rfft(y, n=n, axis=0)
+    freqs = np.fft.rfftfreq(n, d=1.0 / modfs)
+    s[freqs > cutoff] = 0.0
+    out = np.fft.irfft(s, n=n, axis=0)[:T]
+    return out.astype(y.dtype)

@@ -1,5 +1,5 @@
 """Training command line of the port (counterpart of the repository's
-train.py), for GAN-based TTS models:
+train.py), for GAN-based VC and TTS models:
 
     python -m gantts_tpu_torch.train [options] <inputs_dir> <outputs_dir>
 
@@ -12,8 +12,14 @@ their parent), builds the models of ``--hparams_name`` with the
 ``nepoch`` epochs and writes ``checkpoint_epoch{N}_{Generator|
 Discriminator}.pth`` and the logged series (``scalars.jsonl``).
 
+``--hparams_name=vc`` (the default, as in train.py) trains on a parallel
+corpus: X and Y share pooled normalization stats (``data_mean`` and
+``data_var`` in the corpus's parent), the In2Out generator applies MLPG
+itself, and the discriminator reads the static mel-cepstra alone, so a
+``--checkpoint-r`` reference discriminator serves the spoofing rate.
+
 Not here: train.py's multi-device and compile-cache flags, which are TPU
-matters, and the VC bundle, whose In2Out generators are not ported yet.
+matters, and ``--steps-per-dispatch``.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ import numpy as np
 def build_arg_parser():
     p = argparse.ArgumentParser(
         prog="python -m gantts_tpu_torch.train",
-        description="Training script for GAN-based TTS models on PyTorch")
+        description="Training script for GAN-based VC/TTS models on "
+                    "PyTorch")
     p.add_argument("inputs_dir")
     p.add_argument("outputs_dir")
     p.add_argument("--hparams_name", default="vc")
@@ -80,14 +87,10 @@ def main(argv=None):
         init_models_and_states,
         load_arrays,
         prepare_tts,
+        prepare_vc,
     )
 
     hp = getattr(hparams, args.hparams_name).copy()
-    if hp.name == "vc":
-        raise NotImplementedError(
-            "--hparams_name=vc needs the In2Out generators (In2OutHighwayNet,"
-            " In2OutRNNHighwayNet), which are not ported to gantts_tpu_torch "
-            "yet (ROADMAP.md, queue 1 item 10, VC path)")
     hp.parse(args.hparams)
     print(hparams_debug_string(hp))
 
@@ -104,7 +107,8 @@ def main(argv=None):
     os.makedirs(args.checkpoint_dir, exist_ok=True)
 
     X, Y, utt_lengths = load_arrays(inputs_dir, outputs_dir, max_files)
-    loaders, Y_mean, Y_std = prepare_tts(X, Y, utt_lengths, hp, data_dir)
+    prepare = prepare_vc if hp.name == "vc" else prepare_tts
+    loaders, Y_mean, Y_std = prepare(X, Y, utt_lengths, hp, data_dir)
 
     model_g, model_d, _, _, gstate, dstate = init_models_and_states(
         hp, device=args.device)
@@ -144,7 +148,7 @@ def main(argv=None):
     cfg = StepConfig.from_hparams(hp, w_d, mse_w, mge_w, update_d, update_g,
                                   has_ref=model_ref is not None)
     trainer = GanTrainer(cfg, Y_mean, Y_std, args.device,
-                         model_ref=model_ref)
+                         model_ref=model_ref, windows=hp.windows)
 
     print(f"Start training from epoch {global_epoch}")
     gstate, dstate, final_epoch = train_loop(

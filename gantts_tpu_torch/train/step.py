@@ -14,9 +14,16 @@ One ``GanTrainer.step`` runs, in the JAX package's order:
      leak, PARITY.md "Consciously changed" 1);
   5. distortion metrics on the detached outputs, every batch.
 
+The generator forward follows the model's protocol: an In2Out generator
+(the VC bundle's) takes R and the lengths and applies MLPG itself, returning
+(y_hat, y_hat_static); any other generator's output goes through
+``multi_stream_mlpg``, or with ``mlpg_impl="stencil"`` and T >= 4*24+2
+through the stencil MLPG of ``core/fast_mlpg.py``, from the trainer's
+``windows``.  In2Out generators take the dense R in training, as in the JAX
+package; the stencil reaches them through synthesis.
+
 The step returns its losses and counts as 0-dim device tensors, so nothing
-waits for the device until the caller reads them.  Not ported yet: the
-stencil MLPG (``mlpg_impl="stencil"``), which the VC path brings.
+waits for the device until the caller reads them.
 """
 
 from __future__ import annotations
@@ -26,6 +33,10 @@ from typing import Any, Optional
 
 import torch
 
+from gantts_tpu_torch.core.fast_mlpg import (
+    DEFAULT_HALFWIDTH,
+    multi_stream_mlpg_stencil,
+)
 from gantts_tpu_torch.core.masking import masked_mse_loss, sequence_mask
 from gantts_tpu_torch.core.paramgen import multi_stream_mlpg
 from gantts_tpu_torch.core.streams import (
@@ -189,18 +200,18 @@ class GanTrainer:
     """Static step configuration plus denormalization stats; the models and
     optimizers travel in the ``TrainState``s passed to ``step``.
     ``model_ref``, required when ``cfg.has_ref``, is the frozen reference
-    discriminator (weights loaded), run in eval mode without gradient."""
+    discriminator (weights loaded), run in eval mode without gradient.
+    ``windows`` serves ``mlpg_impl="stencil"`` only; without them the step
+    takes the dense R, as the JAX package's does."""
 
     def __init__(self, cfg: StepConfig, Y_mean, Y_std, device,
-                 model_ref=None):
-        if cfg.mlpg_impl != "dense":
-            raise NotImplementedError(
-                "the stencil MLPG is not ported to gantts_tpu_torch yet")
+                 model_ref=None, windows=None):
         if cfg.has_ref and model_ref is None:
             raise ValueError("has_ref needs the reference discriminator "
                              "(model_ref)")
         self.model_ref = model_ref.eval() if model_ref is not None else None
         self.cfg = cfg
+        self.windows = windows
         self.device = torch.device(device)
         self.Y_mean = torch.as_tensor(Y_mean, dtype=torch.float32,
                                       device=self.device)
@@ -209,12 +220,19 @@ class GanTrainer:
 
     def _gen_forward(self, model_g, x, R, lengths, generator):
         if include_parameter_generation(model_g):
-            raise NotImplementedError(
-                "In2Out generators are not ported to gantts_tpu_torch yet")
+            return model_g(x, R, lengths, generator=generator)
         y_hat = model_g(x, lengths, generator=generator)
-        y_hat_static = multi_stream_mlpg(
-            y_hat, R, self.cfg.stream_sizes, self.cfg.has_dynamic_features)
-        return y_hat, y_hat_static
+        return y_hat, self._mlpg(y_hat, R)
+
+    def _mlpg(self, y_hat, R):
+        cfg = self.cfg
+        if (cfg.mlpg_impl == "stencil" and self.windows is not None
+                and y_hat.shape[1] >= 4 * DEFAULT_HALFWIDTH + 2):
+            return multi_stream_mlpg_stencil(
+                y_hat, self.windows, cfg.stream_sizes,
+                cfg.has_dynamic_features)
+        return multi_stream_mlpg(y_hat, R, cfg.stream_sizes,
+                                 cfg.has_dynamic_features)
 
     def step(self, gstate, dstate, x, y, lengths, R, adv_w, generator=None,
              train=True, z=None):

@@ -13,6 +13,14 @@ values, and no MLPG matrix built for a stream without dynamic features.
 The generator warm-up run after the baseline in the same process must give
 the same weights as one run alone, so a stage leaves nothing behind that
 changes the next.
+
+The vc bundle: vc_demo.sh's call of train_gan.sh (``vc``, its hparams,
+``X``, ``Y``, four epoch counts) with ``RUN_SPOOFING_MODEL=1``, argv for
+argv; then all five stages end to end on the CPU with a tiny
+In2OutRNNHighwayNet on tests/make_synthetic_data.py's parallel corpus, so
+that stage 5 loads stage 4's reference discriminator (``--checkpoint-r``;
+the vc discriminator reads the static mel-cepstra alone) and logs the
+spoofing rate.
 """
 
 import json
@@ -25,7 +33,7 @@ from unittest import mock
 
 import pytest
 import torch
-from make_synthetic_data import make_duration
+from make_synthetic_data import make_duration, make_vc
 
 from gantts_tpu_torch import curriculum
 from gantts_tpu_torch.train.checkpoint import load_checkpoint
@@ -170,3 +178,57 @@ def test_stages_leave_no_state_behind(trained, tmp_path):
     ref, _, _ = load_checkpoint(tmp / "ck/gan/checkpoint_epoch1_Generator.pth")
     assert epoch == 1 and set(got) == set(ref)
     assert all(torch.equal(got[k], ref[k]) for k in ref)
+
+
+VC_TINY = ("batch_size=4,order=19,stream_sizes=[57],"
+           "generator=In2OutRNNHighwayNet,"
+           "generator_params={'in_dim': None, 'out_dim': None, "
+           "'num_hidden': 1, 'hidden_dim': 16, 'static_dim': 19, "
+           "'dropout': 0.5},"
+           "discriminator_params={'in_dim': 19, 'out_dim': 1, "
+           "'num_hidden': 1, 'hidden_dim': 8, 'dropout': 0.5, "
+           "'last_sigmoid': True}")
+
+
+def _vc_args(tmp_path, epochs=("1", "1", "2", "2")):
+    return ["vc", VC_TINY, f"{tmp_path}/data/X", f"{tmp_path}/data/Y",
+            f"{tmp_path}/ck", *epochs]
+
+
+def test_vc_stage_argvs_match_train_gan_sh(tmp_path):
+    """vc_demo.sh's curriculum (G warm-up, D warm-up, then the spoofing
+    model and the total at the same epoch count) with the spoofing model:
+    five stages, stage 5 given stage 4's discriminator."""
+    args = _vc_args(tmp_path, ("50", "10", "200", "200"))
+    extra = {"RUN_SPOOFING_MODEL": "1"}
+    bash = _bash_argvs(tmp_path, args, extra)
+    rc, port = _port_argvs(args, extra)
+    assert rc == 0 and port == bash and len(port) == 5
+    assert port[-1][-3] == (f"--checkpoint-r={tmp_path}/ck/spoofing_model/"
+                            "checkpoint_epoch200_Discriminator.pth")
+
+
+def test_vc_curriculum_five_stages_on_cpu(tmp_path):
+    """All five stages of the vc bundle: the spoofing model trains against
+    the baseline generator, and the adversarial stage reads it as its
+    reference discriminator and logs the spoofing rate, a share of frames."""
+    make_vc(str(tmp_path / "data"), 16, 19)
+    args = _vc_args(tmp_path) + ["--device", "cpu"]
+    assert curriculum.main(args, env=_env({"RUN_SPOOFING_MODEL": "1"})) == 0
+    ck = tmp_path / "ck"
+    for path in ("baseline/checkpoint_epoch2_Generator.pth",
+                 "gan/checkpoint_epoch1_Generator.pth",
+                 "gan/checkpoint_epoch1_Discriminator.pth",
+                 "gan/checkpoint_epoch2_Generator.pth",
+                 "spoofing_model/checkpoint_epoch2_Discriminator.pth",
+                 "gan/checkpoint_epoch2_Discriminator.pth"):
+        assert exists(ck / path), path
+    rows = [json.loads(line) for line in
+            (ck / "gan" / "log" / "scalars.jsonl").read_text().splitlines()]
+    assert rows and all(math.isfinite(r["value"]) for r in rows)
+    spoof = [r for r in rows if r["tag"].endswith("spoofing rate")]
+    assert {r["tag"] for r in spoof} == {"train spoofing rate",
+                                         "test spoofing rate"}
+    assert all(0 <= r["value"] <= 1 for r in spoof)
+    assert {r["tag"] for r in rows} >= {"train mcd metric",
+                                        "train loss_adv loss"}

@@ -743,3 +743,128 @@ def test_unidirectional_srurnn_launches_every_kernel(cuda):
         "sru_proj_gemm": 1, "sru_fwd_scan": 1, "sru_bwd_scan": 1,
         "lstm_fwd_scan": 0, "lstm_bwd_scan": 0, "linear_recurrence_fwd": 2,
         "linear_recurrence_bwd": 2}
+
+
+# ---------------------------------------------------------------------------
+# The voice-conversion path: In2OutRNNHighwayNet runs a unidirectional 3x512
+# LSTM on 177 inputs (59 mel-cepstra with deltas) at B=20, one direction a
+# launch, and synthesis applies the stencil MLPG at any length.
+# ---------------------------------------------------------------------------
+
+VC_DIM, VC_STATIC = 177, 59
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [(False,), (True,)])
+def test_one_direction_lstm_kernels_at_the_vc_shapes(cuda, dt, reverse):
+    """K = 177 (the wrapper copies bf16 x into rows 184 wide), B = 20,
+    H = 512, one direction: the GEMM and both scans against their plain
+    versions, the scans fed the kernel GEMM's own xp; bf16 takes the
+    cluster kernels, f32 the cooperative ones."""
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    Tn, Bn, Hn = 96, 20, 512
+    rs = np.random.RandomState(8)
+    bound = 1.0 / Hn ** 0.5
+    x2 = torch.tensor(rs.randn(Tn * Bn, VC_DIM), dtype=dt, device=cuda)
+    w_ih = torch.tensor(rs.uniform(-bound, bound, (VC_DIM, 4 * Hn)),
+                        dtype=dt, device=cuda)
+    _, whh, bias, lengths, gy = _lstm_inputs(cuda, dt, 1, Tn, Bn, Hn)
+    assert L.fwd_design(Bn, Hn, dt) == L.bwd_design(Bn, Hn, dt) == (
+        "cluster" if dt == torch.bfloat16 else "cooperative")
+    L.reset_launch_counts()
+    xp = L.sru_proj_gemm(x2, w_ih)
+    assert _rel(xp, K.sru_proj_gemm_plain(x2, w_ih)) < TOL[dt]
+    xp = xp.reshape(Tn, Bn, 4 * Hn)
+    y_k, c_k, g4_k = L.lstm_fwd_scan(xp, whh, bias, lengths, reverse)
+    y_p, c_p, g4_p = L.lstm_fwd_scan_plain(xp, whh, bias, lengths, reverse)
+    assert _rel(y_k, y_p) < TOL[dt] and _rel(g4_k, g4_p) < TOL[dt]
+    assert _rel(c_k, c_p) < (1e-4 if dt == torch.float32 else 2e-3)
+    dxp_k, db_k = L.lstm_bwd_scan(whh, lengths, c_p, g4_p, gy, reverse)
+    dxp_p, db_p = L.lstm_bwd_scan_plain(whh, lengths, c_p, g4_p, gy, reverse)
+    assert _rel(dxp_k, dxp_p) < TOL[dt] and _rel(db_k, db_p) < 1e-3
+    torch.cuda.synchronize()
+    assert (L.launch_counts["sru_proj_gemm"], L.launch_counts["lstm_fwd_scan"],
+            L.launch_counts["lstm_bwd_scan"]) == (1, 1, 1)
+
+
+def test_in2out_rnn_highway_net_on_card_matches_cpu(cuda):
+    """The vc bundle's full-width In2OutRNNHighwayNet (177 -> 177, 3x512
+    unidirectional LSTM, static 59), f32, dropout off: output and every
+    gradient on the card against the CPU's plain versions, to 1e-4 of
+    scale; 3 launches of the GEMM and of each scan."""
+    from gantts_tpu_torch.core.windows import (
+        DEFAULT_WINDOWS,
+        unit_variance_mlpg_matrix,
+    )
+    from gantts_tpu_torch.models import In2OutRNNHighwayNet
+
+    Tn, Bn = 64, 3
+    rs = np.random.RandomState(9)
+    x_np = rs.randn(Bn, Tn, VC_DIM).astype(np.float32)
+    g_np = rs.randn(Bn, Tn, VC_STATIC).astype(np.float32)
+    R_np = unit_variance_mlpg_matrix(DEFAULT_WINDOWS, Tn)
+    results, state = [], None
+    for dev in (torch.device("cpu"), cuda):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        model = In2OutRNNHighwayNet(
+            in_dim=VC_DIM, out_dim=VC_DIM, static_dim=VC_STATIC,
+            num_hidden=3, hidden_dim=512, dropout=0.0, generator=gen,
+            device=dev)
+        if state is None:
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(state)
+        x = torch.tensor(x_np, device=dev)
+        lengths = torch.tensor([Tn, 40, 17], dtype=torch.int32, device=dev)
+        K.reset_launch_counts()
+        _, y = model(x, torch.tensor(R_np, device=dev), lengths)
+        y.backward(torch.tensor(g_np, device=dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            counts = dict(K.launch_counts)
+        results.append([y] + [p.grad for p in model.parameters()])
+    assert (counts["sru_proj_gemm"], counts["lstm_fwd_scan"],
+            counts["lstm_bwd_scan"]) == (3, 3, 3)
+    for got, ref in zip(results[1], results[0]):
+        assert torch.isfinite(got).all()
+        assert _rel(got.cpu(), ref) < 1e-4
+
+
+@pytest.mark.parametrize("Tn", [98, 512, 4096])
+def test_stencil_mlpg_on_card_matches_dense_r(cuda, Tn):
+    """The stencil MLPG on the card (exact f32: TF32 off) against the dense
+    R product at the same length, under 2e-5 absolute, as the CPU tests; and
+    the length-general operator at ragged lengths, padding zero."""
+    from gantts_tpu_torch.core.fast_mlpg import (
+        MLPGStencil,
+        unit_variance_mlpg_stencil,
+    )
+    from gantts_tpu_torch.core.paramgen import unit_variance_mlpg
+    from gantts_tpu_torch.core.windows import (
+        DEFAULT_WINDOWS,
+        unit_variance_mlpg_matrix,
+    )
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rs = np.random.RandomState(Tn)
+    means = torch.tensor(rs.randn(2, Tn, 3 * VC_STATIC), dtype=torch.float32,
+                         device=cuda)
+    R = torch.tensor(unit_variance_mlpg_matrix(DEFAULT_WINDOWS, Tn),
+                     device=cuda)
+    dense = unit_variance_mlpg(R, means)
+    got = unit_variance_mlpg_stencil(means, DEFAULT_WINDOWS)
+    assert float((got - dense).abs().max()) < 2e-5
+    op = MLPGStencil.create(DEFAULT_WINDOWS, device=cuda)
+    short = Tn - Tn // 3
+    lengths = torch.tensor([Tn, short], dtype=torch.int32, device=cuda)
+    masked = means.clone()
+    masked[1, short:] = 0
+    dyn = unit_variance_mlpg(op, masked, lengths)
+    R_s = torch.tensor(unit_variance_mlpg_matrix(DEFAULT_WINDOWS, short),
+                       device=cuda)
+    ref_s = unit_variance_mlpg(R_s, masked[1, :short])
+    assert float((dyn[0] - dense[0]).abs().max()) < 2e-5
+    assert float((dyn[1, :short] - ref_s).abs().max()) < 2e-5
+    assert (dyn[1, short:] == 0).all()

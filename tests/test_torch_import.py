@@ -36,6 +36,12 @@ def test_port_imports_without_jax():
     assert "gantts_tpu_torch.train.__main__" in MODULES
     assert "gantts_tpu_torch.kernels.linear_scan" in MODULES
     assert "gantts_tpu_torch.curriculum" in MODULES
+    assert {"gantts_tpu_torch.core.fast_mlpg", "gantts_tpu_torch.synthesis",
+            "gantts_tpu_torch.evaluation_vc",
+            "gantts_tpu_torch.frontend.native",
+            "gantts_tpu_torch.frontend.world",
+            "gantts_tpu_torch.frontend.sptk",
+            "gantts_tpu_torch.utils.analysis"} <= set(MODULES)
     proc = _run(
         "import importlib, os, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
@@ -65,6 +71,26 @@ def test_kernel_modules_import_without_cuda():
         "      linear_scan._lib.cache_info().currsize)\n")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "{} 0 0 0", proc.stdout
+
+
+def test_native_loader_reads_nothing_under_the_jax_package():
+    """The port's loader of the C++ host engine compiles the repository's
+    cpp/frontend.cpp into the port's own build directory: neither its source
+    nor its library lies under gantts_tpu/, nor under cpp/build/, where the
+    JAX package's loader builds.  Importing it builds nothing."""
+    proc = _run(
+        "from gantts_tpu_torch.frontend import native\n"
+        "print(native._SOURCE)\n"
+        "print(native._BUILD_DIR)\n"
+        "print(native._lib, native._engine)\n")
+    assert proc.returncode == 0, proc.stderr
+    source, build, state = proc.stdout.strip().splitlines()
+    assert source == join(REPO, "cpp", "frontend.cpp")
+    assert build == join(PORT, "frontend", "build")
+    assert state == "None None"
+    for path in (source, build):
+        assert not path.startswith(JAX_PACKAGE + os.sep), path
+        assert not path.startswith(join(REPO, "cpp", "build")), path
 
 
 def test_port_sources_name_no_jax():

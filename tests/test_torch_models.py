@@ -170,10 +170,20 @@ def test_converter_round_trip_is_bit_exact(name, kw):
         assert a.tobytes() == b.tobytes(), path
 
 
-def test_unported_models_say_which_roadmap_item_brings_them():
-    for name in ("In2OutHighwayNet", "In2OutRNNHighwayNet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_model(name, in_dim=4, out_dim=4)
+def test_registry_builds_every_model():
+    """No model is left unported: every name of the registry builds a
+    module, the In2Out generators too (they apply MLPG themselves), and an
+    unknown name is refused."""
+    from gantts_tpu_torch.models import (
+        MODEL_REGISTRY,
+        include_parameter_generation,
+    )
+
+    for name in MODEL_REGISTRY:
+        model = create_model(name, in_dim=6, out_dim=6)
+        assert isinstance(model, torch.nn.Module), name
+        assert include_parameter_generation(model) == name.startswith(
+            "In2Out"), name
     with pytest.raises(ValueError, match="Unknown model"):
         create_model("Nope")
 

@@ -459,8 +459,12 @@ def test_train_cli_smoke_cpu(corpus, tmp_path):
     assert all(math.isfinite(row["value"]) for row in resumed)
 
 
-def test_cli_refuses_the_vc_bundle(tmp_path):
+def test_cli_takes_the_vc_bundle(tmp_path):
+    """The vc bundle (the default, as in train.py) is taken: the command
+    line goes on to read the parallel corpus, and what stops it here is the
+    missing X directory.  tests/test_torch_synthesis.py trains it end to
+    end."""
     from gantts_tpu_torch.train.__main__ import main
 
-    with pytest.raises(NotImplementedError, match="In2OutHighwayNet"):
+    with pytest.raises(FileNotFoundError, match="X"):
         main([str(tmp_path / "X"), str(tmp_path / "Y"), "--device", "cpu"])
