@@ -19,7 +19,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      lengths; the bf16 GEMM also at the LSTM path's N = 8H; the SRU
      kernels also at (4d)'s shapes, B=32, T=96, D in {416, 1024}; the
      one-direction LSTM kernels and the GEMM also at the VC path's shapes,
-     D in {177, 512}, in float32 (the cooperative kernels) and bfloat16),
+     D in {177, 512}, in float32 (the cooperative kernels) and bfloat16;
+     the SRU GEMM and forward scan also at TTS synthesis's shapes, float32
+     at B=1, T=64 with D in {416, 1024} and T=608 with D in {425, 1024}),
      and time both,
      beside the library call that computes the same function where there
      is one (cuBLAS for the GEMM, at every (K, N) the main paths give it; a
@@ -66,7 +68,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      with phase 8's generator, with --diffvc and without, over the corpus's
      eval and test wavs: launches per utterance, finite and non-silent
      waveforms, analysis.json, the seconds an utterance takes, and the
-     first utterance's prediction against a CPU copy of the generator.
+     first utterance's prediction against a CPU copy of the generator;
+ 10. tts_demo.sh on the card: a TTS corpus of wavs and state-aligned HTS
+     labels that the script writes, its features by the port's
+     prepare_features_tts (in a subprocess), the curriculum command's
+     stages 1-3 and 5 for the full-width tts_duration and tts_acoustic
+     bundles in their own float32, then the port's TTS evaluation command
+     line (gantts_tpu_torch.evaluation_tts) on the baseline and the
+     adversarial generators and without the duration model: launches per
+     step and per utterance, the wavs and analysis.json, the seconds an
+     utterance takes, and the first utterance's predictions of both models
+     against CPU copies of the generators.
 
 Each of (4) to (4f) ends with a torch.profiler trace of a few more
 of its steps, which prints where the device time goes and the idle share
@@ -817,6 +829,75 @@ def phase_vc_lstm_kernels(dev, card, errs):
           f"({bwd['bound_by']})  [{card}]")
     for dt in (f32, bf16):
         time_cudnn_lstm(dev, card, gen, lengths, one, D=VC_DIM, dt=dt)
+
+
+# Phase 3's synthesis shapes: one utterance (B=1) in the bundles' float32,
+# padded to the bucket multiple of 32 as synthesis.model_forward pads it:
+# (model, padded T, true length, input widths of its layers)
+SYNTH_SHAPES = (("dur", 64, 57, (PHONE_DIM, 2 * H)),
+                ("ac", 608, 597, (LIN_DIM, 2 * H)))
+
+
+def phase_synthesis_kernels(dev, card, errs):
+    """Phase 3 at TTS synthesis's shapes: sru_proj_gemm and sru_fwd_scan
+    (both directions, relu) in float32 at B=1, for the duration model
+    (phone-level, T=64) and the acoustic model (frame-level, T=608), each
+    layer width; each held to its plain version at phase 3's float32 limits
+    and timed beside its plain version, torch.mm for the GEMM (TF32 off)
+    and its bound."""
+    from gantts_tpu_torch.kernels import sru_scan as K
+
+    f32 = torch.float32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    bound = 1.0 / H ** 0.5
+
+    def uniform(*shape):
+        return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound
+
+    zeros = torch.zeros(H, device=dev)
+    for model, Tn, n_valid, dims in SYNTH_SHAPES:
+        lengths = torch.tensor([n_valid], dtype=torch.int32, device=dev)
+        for D in dims:
+            x2 = torch.randn((Tn, D), generator=gen, device=dev)
+            w = uniform(D, 4 * H)
+            bias4 = torch.cat([zeros, uniform(H), uniform(H), zeros])
+            u_p = K.sru_proj_gemm_plain(x2, w)
+            check("sru_proj_gemm", f"u:{model}", f32, D,
+                  K.sru_proj_gemm(x2, w), u_p, TOL[f32], errs)
+            u = u_p.reshape(Tn, 1, 4 * H)
+            for reverse in (False, True):
+                h_k, c_k = K.sru_fwd_scan(u, bias4, lengths, reverse, 1)
+                h_p, c_p = K.sru_fwd_scan_plain(u, bias4, lengths, reverse,
+                                                1)
+                way = "bwd" if reverse else "fwd"
+                check("sru_fwd_scan", f"h:{model}:{way}", f32, D, h_k, h_p,
+                      TOL[f32], errs)
+                check("sru_fwd_scan", f"c:{model}:{way}", f32, D, c_k, c_p,
+                      TOL_F32_STATE, errs)
+            M, N = Tn, 4 * H
+            gemm = record(time_ms(lambda: K.sru_proj_gemm(x2, w), 50),
+                          time_ms(lambda: K.sru_proj_gemm_plain(x2, w), 50),
+                          4 * (M * D + D * N + M * N), 2 * M * D * N, f32,
+                          time_ms(lambda: torch.mm(x2, w), 50))
+            # u read on valid frames, h and c written on all of them; ~16
+            # f32 operations per valid lane and step
+            scan = record(
+                time_ms(lambda: K.sru_fwd_scan(u, bias4, lengths, False, 1),
+                        50),
+                time_ms(lambda: K.sru_fwd_scan_plain(u, bias4, lengths,
+                                                     False, 1), 2, 1),
+                n_valid * N * 4 + N * 4 + 4 + Tn * H * 4 * 2,
+                16 * n_valid * H, f32)
+            print(f"[3] time sru_proj_gemm float32 B=1 {model} M={M} K={D} "
+                  f"N={N}: kernel {gemm['ms']:.4f} ms  plain "
+                  f"{gemm['plain_ms']:.4f} ms  torch.mm "
+                  f"{gemm['library_ms']:.4f} ms  bound "
+                  f"{gemm['bound_ms']:.4f} ms ({gemm['bound_by']})  [{card}]")
+            print(f"[3] time sru_fwd_scan  float32 B=1 {model} T={Tn} "
+                  f"(length {n_valid}) after K={D}: kernel {scan['ms']:.4f} "
+                  f"ms  plain {scan['plain_ms']:.4f} ms  bound "
+                  f"{scan['bound_ms']:.4f} ms ({scan['bound_by']})  [{card}]")
 
 
 def acoustic_hp(compute_dtype, **gen_overrides):
@@ -1812,7 +1893,332 @@ def check_vc_prediction(model, mc_scaled, hp, y_card):
              "the comparison cannot see a TF32 matmul")
 
 
+TTS_VOWELS = ("aa", "ae", "ah", "ao", "eh", "ey", "ih", "iy", "ow", "uw")
+TTS_CONSONANTS = ("b", "d", "f", "hh", "k", "l", "m", "n", "r", "s", "t",
+                  "w", "z")
+TTS_UTTERANCES = 24  # 19 for training and validation, 5 held out
+TTS_FRAMES = (400, 801)  # 2-4 s at 5 ms: the ARCTIC assumption, PERF.md
+# The first utterance's predictions on the card against a CPU copy of each
+# generator, max|card - cpu| / max|cpu| (phase 9's limit, PROBE_RTOL).
+TTS_Y_RTOL = 2e-5
+
+
+def tts_context(rs, ll, l, c, r, rr):
+    """One phone's HTS full-context label in the layout the shipped
+    416-question set (data/questions-radio_dnn_416.hed) reads: the quinphone,
+    then syllable, word, phrase and utterance fields (/A: to /J:) with
+    numbers drawn at random, and 'x' numbers for pauses."""
+    if c == "pau":
+        return (f"{ll}^{l}-{c}+{r}={rr}@x_x/A:0_0_0/B:x-x-x@x-x&x-x#x-x$x-x"
+                "!x-x;x-x|x/C:0+0+0/D:0_0/E:x+x@x+x&x+x#x+x/F:0_0/G:0_0"
+                "/H:x=x@1=1|0/I:0_0/J:18+7-1")
+
+    def n(lo, hi):
+        return int(rs.randint(lo, hi + 1))
+    vowel = c if c in TTS_VOWELS else "novowel"
+    return (f"{ll}^{l}-{c}+{r}={rr}@{n(1, 3)}_{n(1, 3)}"
+            f"/A:{n(0, 1)}_{n(0, 1)}_{n(1, 4)}"
+            f"/B:{n(0, 1)}-{n(0, 1)}-{n(1, 4)}@{n(1, 3)}-{n(1, 3)}"
+            f"&{n(1, 8)}-{n(1, 8)}#{n(0, 3)}-{n(0, 3)}${n(0, 3)}-{n(0, 3)}"
+            f"!{n(0, 4)}-{n(0, 4)};{n(0, 4)}-{n(0, 4)}|{vowel}"
+            f"/C:{n(0, 1)}+{n(0, 1)}+{n(1, 4)}/D:content_{n(1, 3)}"
+            f"/E:content+{n(1, 3)}@{n(1, 6)}+{n(1, 6)}&{n(0, 4)}+{n(0, 4)}"
+            f"#{n(0, 3)}+{n(0, 3)}/F:content_{n(1, 3)}/G:{n(0, 10)}_{n(0, 6)}"
+            f"/H:{n(3, 12)}={n(2, 8)}@1={n(1, 2)}|L-L%/I:{n(0, 10)}_{n(0, 6)}"
+            f"/J:{n(10, 30)}+{n(5, 15)}-{n(1, 3)}")
+
+
+def write_tts_corpus(dst, num=TTS_UTTERANCES, frames=TTS_FRAMES, seed=0):
+    """A TTS corpus in the Merlin slt_arctic layout that
+    prepare_features_tts reads: ``dst/wav/utt_NNNN.wav`` (int16, VC_FS,
+    synth_utterance) and ``dst/label_state_align/utt_NNNN.lab``, five
+    states a phone with durations in 5 ms frames (2-8, a pause's 4-12)
+    that sum to the waveform's frames exactly.  Each utterance opens and
+    closes with a pause and alternates consonants and vowels between; its
+    frames are drawn from ``frames`` (the ARCTIC assumption)."""
+    from scipy.io import wavfile
+
+    rs = np.random.RandomState(seed)
+    for d in ("wav", "label_state_align"):
+        os.makedirs(os.path.join(dst, d), exist_ok=True)
+    shift = 50000  # 5 ms in HTS's 100 ns units
+    for i in range(num):
+        target = int(rs.randint(*frames))
+        phones, durs = [], []
+        while not durs or sum(map(sum, durs)) < target - 60:
+            phone = ("pau" if not phones else
+                     TTS_VOWELS[rs.randint(len(TTS_VOWELS))] if len(phones) % 2
+                     else TTS_CONSONANTS[rs.randint(len(TTS_CONSONANTS))])
+            phones.append(phone)
+            durs.append(list(rs.randint(4, 13, 5) if phone == "pau"
+                             else rs.randint(2, 9, 5)))
+        phones.append("pau")
+        durs.append(list(rs.randint(4, 13, 5)))
+        padded = ["x", "x"] + phones + ["x", "x"]
+        lines, t = [], 0
+        for p, phone in enumerate(phones):
+            ctx = tts_context(rs, *padded[p:p + 5])
+            for k, d in enumerate(durs[p]):
+                lines.append(f"{t} {t + int(d) * shift} {ctx}[{k + 2}]")
+                t += int(d) * shift
+        name = f"utt_{i:04d}"
+        with open(os.path.join(dst, "label_state_align", name + ".lab"),
+                  "w") as f:
+            f.write("\n".join(lines) + "\n")
+        wavfile.write(os.path.join(dst, "wav", name + ".wav"), VC_FS,
+                      synth_utterance(rs, t // shift,
+                                      100.0 + 80.0 * rs.rand()))
+
+
+def prepare_tts_features(card, root, feats):
+    """Phase 10's feature extraction: ``python -m
+    gantts_tpu_torch.prepare_features_tts`` in a subprocess (host work
+    alone, 8 worker processes), then the outputs' dims (416 / 5 / 425 /
+    187), non-constant phone-level columns and finite values."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gantts_tpu_torch.prepare_features_tts", root,
+         f"--dst_dir={feats}", "--workers=8"], cwd=here, capture_output=True,
+        text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:])
+        fail(f"prepare_features_tts exited {proc.returncode}")
+    dims, arrays = {}, {}
+    for sub in ("X_duration", "Y_duration", "X_acoustic", "Y_acoustic"):
+        d = os.path.join(feats, sub)
+        arrays[sub] = [np.load(os.path.join(d, f))
+                       for f in sorted(os.listdir(d))]
+        dims[sub] = {a.shape[1] for a in arrays[sub]}
+        if len(arrays[sub]) != TTS_UTTERANCES or not all(
+                np.isfinite(a).all() for a in arrays[sub]):
+            fail(f"{sub}: {len(arrays[sub])} files, or values that are not "
+                 f"finite")
+    varying = int((np.concatenate(arrays["X_duration"]).std(axis=0)
+                   > 0).sum())
+    frames = sum(len(a) for a in arrays["Y_acoustic"])
+    print(f"[10] prepare_features_tts: {TTS_UTTERANCES} utterances, "
+          f"{frames} frames after silences, in {secs:.2f} s (subprocess, 8 "
+          f"workers); dims {dims}; {varying} of {PHONE_DIM} phone-level "
+          f"columns vary  [{card}]")
+    if dims != {"X_duration": {PHONE_DIM}, "Y_duration": {DUR_DIM},
+                "X_acoustic": {LIN_DIM}, "Y_acoustic": {OUT_DIM}}:
+        fail(f"prepare_features_tts wrote dims {dims}")
+    if varying < 50:
+        fail(f"only {varying} phone-level columns vary: the questions do "
+             f"not read the labels")
+
+
+def tts_eval_run(card, tmp, feats, labels, tag, ckpts, workers, extra):
+    """One ``python -m gantts_tpu_torch.evaluation_tts`` main() on the card,
+    ``--post-filter --workers=<workers>`` and ``extra``, every plain version
+    refused, its forwards and waveforms recorded.  Checks the exit code,
+    the launches (per utterance 24 sru_proj_gemm and 24 sru_fwd_scan, 12
+    and 12 without the duration model, no sru_bwd_scan), the wavs (int16,
+    finite before the cast, not silent, each as long as its predicted
+    frames), and analysis.json.  Returns the launch counts and the recorded
+    forwards: (model, input, hp, output) each."""
+    from scipy.io import wavfile
+
+    from gantts_tpu_torch import evaluation_tts, synthesis
+    from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    real_forward, real_wave = synthesis.model_forward, synthesis.gen_waveform
+    forwards, waves = [], []
+
+    def recorded_forward(model, x, hp):
+        out = real_forward(model, x, hp)
+        forwards.append((model, x.copy(), hp, out.copy()))
+        return out
+
+    def recorded_wave(*args, **kwargs):
+        out = real_wave(*args, **kwargs)
+        waves.append(out[0])
+        return out
+
+    out_dir = os.path.join(tmp, f"synth_{tag}")
+    argv = [ckpts["acoustic"], ckpts["duration"], feats, labels, out_dir,
+            "--post-filter", f"--workers={workers}", "--device=cuda"] + extra
+    n_utt = len(evaluation_tts.get_lab_files(feats, labels)) + \
+        len(evaluation_tts.get_lab_files(feats, labels, test=True))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null), \
+            plain_versions_forbidden():
+        synthesis.model_forward = recorded_forward
+        synthesis.gen_waveform = recorded_wave
+        try:
+            rc = evaluation_tts.main(argv)
+        finally:
+            synthesis.model_forward = real_forward
+            synthesis.gen_waveform = real_wave
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / n_utt
+    counts = {k: n for k, n in launch_counts.items() if n}
+    with_dur = "--disable-duraton-gen" not in extra
+    per_utt = 24 if with_dur else 12
+    print(f"[10] evaluation_tts {tag} ({' '.join(extra) or 'durations'}): "
+          f"exit {rc}, {len(waves)} utterances, {secs:.3f} s an utterance "
+          f"({workers} thread(s)); launches {counts}  [{card}]")
+    if rc != 0 or len(waves) != n_utt:
+        fail(f"evaluation_tts exited {rc} after {len(waves)} of {n_utt} "
+             f"utterances")
+    want = dict(sru_proj_gemm=per_utt * n_utt, sru_fwd_scan=per_utt * n_utt)
+    for k, n in launch_counts.items():
+        if n != want.get(k, 0):
+            fail(f"evaluation_tts {tag}: {k} launched {n} times, its "
+                 f"utterances need {want.get(k, 0)}")
+    acoustic = [f for f in forwards if f[3].shape[1] == OUT_DIM]
+    if len(acoustic) != n_utt or len(forwards) != n_utt * (1 + with_dur):
+        fail(f"evaluation_tts {tag}: {len(forwards)} forwards for {n_utt} "
+             f"utterances")
+    for w in waves:
+        if not np.isfinite(w).all() or np.abs(w).max() < 100:
+            fail("a synthesized waveform is not finite or is silent")
+    lengths = []
+    for sub in ("eval", "test"):
+        for name in sorted(os.listdir(os.path.join(out_dir, sub))):
+            fs, y = wavfile.read(os.path.join(out_dir, sub, name))
+            if fs != VC_FS or y.dtype != np.int16:
+                fail(f"{name}: {fs} Hz {y.dtype}, expected int16 at {VC_FS}")
+            lengths.append(len(y))
+    hop = VC_FS // 200
+    if sorted(lengths) != sorted(len(f[1]) * hop for f in acoustic):
+        fail(f"evaluation_tts {tag}: wav lengths {sorted(lengths)} are not "
+             f"the predicted frames x {hop}")
+    with open(os.path.join(out_dir, "analysis.json")) as f:
+        report = json.load(f)
+    if not math.isfinite(report["gv_ratio"]):
+        fail(f"analysis.json: gv_ratio {report['gv_ratio']}")
+    print(f"[10] {n_utt} wavs of {min(lengths) / VC_FS:.2f}-"
+          f"{max(lengths) / VC_FS:.2f} s, each its predicted frames x {hop}"
+          f"; analysis.json gv_ratio {report['gv_ratio']:.4f}")
+    return launch_counts.copy(), forwards
+
+
+def check_tts_predictions(card, forwards):
+    """Phase 10's first utterance: the duration model's prediction (before
+    rounding) and the acoustic model's, as evaluation_tts made them on the
+    card, against synthesis.model_forward on a CPU copy of each generator,
+    same input, and against the card with TF32 matmuls as a control: max
+    |card - cpu| / max |cpu| within TTS_Y_RTOL, which the control must
+    exceed.  Then the device time of each forward by CUDA events (the span
+    from before its input's copy to after its output's)."""
+    import copy
+
+    from gantts_tpu_torch import synthesis
+
+    first = {}
+    for model, x, hp, y in forwards:
+        first.setdefault(y.shape[1], (model, x, hp, y))
+    for dim, what in ((DUR_DIM, "duration"), (OUT_DIM, "acoustic")):
+        model, x, hp, y_card = first[dim]
+        y_cpu = synthesis.model_forward(copy.deepcopy(model).cpu(), x, hp)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            y_control = synthesis.model_forward(model, x, hp)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        scale = float(np.abs(y_cpu).max())
+        g = float(np.abs(y_card - y_cpu).max()) / scale
+        gc = float(np.abs(y_control - y_cpu).max()) / scale
+        spans = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            synthesis.model_forward(model, x, hp)
+            end.record()
+            torch.cuda.synchronize()
+            spans.append(start.elapsed_time(end))
+        print(f"[10] first utterance, {what} model ({x.shape[0]} steps): "
+              f"card against CPU {g:.2e} of scale {scale:.4f}, limit "
+              f"{TTS_Y_RTOL:.0e} {'ok' if g <= TTS_Y_RTOL else 'FAIL'}; "
+              f"control(tf32) {gc:.2e}; forward on the card "
+              f"{min(spans):.3f} ms (CUDA events, best of 5)  [{card}]")
+        if not g <= TTS_Y_RTOL:
+            fail(f"evaluation_tts: the card's {what} prediction differs from "
+                 f"the CPU's")
+        if not gc > TTS_Y_RTOL:
+            fail(f"evaluation_tts: the TF32 control of the {what} model stays "
+                 f"within the limit, so the comparison cannot see a TF32 "
+                 f"matmul")
+
+
+def phase_tts_demo(card, tmp):
+    """Phase 10: tts_demo.sh on the card, from wavs and labels to wavs.
+    write_tts_corpus's 24 utterances; their features by the port's
+    prepare_features_tts (prepare_tts_features); the curriculum command
+    for tts_duration and for tts_acoustic at full width in the bundles' own
+    float32, stages 1-3 and 5 (baseline to epoch 2, generator warm-up 1
+    epoch, discriminator warm-up 1 epoch, adversarial epoch 2), 12
+    sru_proj_gemm and 12 sru_fwd_scan a step and 12 sru_bwd_scan a step
+    that trains the generator; then evaluation_tts on the baseline and on
+    the adversarial generators with 4 threads, and without the duration
+    model on one (tts_eval_run), and the first utterance's predictions
+    against the CPU (check_tts_predictions).  Returns the launch counts of
+    all of it."""
+    from gantts_tpu_torch import hparams
+
+    root, feats = os.path.join(tmp, "corpus"), os.path.join(tmp, "feats")
+    t0 = time.perf_counter()
+    write_tts_corpus(root)
+    print(f"[10] corpus: {TTS_UTTERANCES} utterances (wav and "
+          f"label_state_align) written in {time.perf_counter() - t0:.2f} s")
+    prepare_tts_features(card, root, feats)
+    plan = [("baseline", 2, True), ("generator_warmup", 1, True),
+            ("discriminator_warmup", 1, False), ("adversarial", 1, True)]
+    totals, ckpts = {}, {}
+    for typ in ("duration", "acoustic"):
+        xdir, ydir = (os.path.join(feats, f"{d}_{typ}") for d in "XY")
+        ck = os.path.join(tmp, f"ck_{typ}")
+        counts = run_curriculum(
+            "10", [f"tts_{typ}", "compute_dtype=float32", xdir, ydir, ck,
+                   "1", "1", "1", "2"], curriculum_env(), plan,
+            dict(sru_proj_gemm=12, sru_fwd_scan=12), dict(sru_bwd_scan=12),
+            epoch_steps(xdir, getattr(hparams, f"tts_{typ}").batch_size))
+        require_checkpoints(ck, (
+            "baseline/checkpoint_epoch2_Generator.pth",
+            "gan/checkpoint_epoch1_Generator.pth",
+            "gan/checkpoint_epoch1_Discriminator.pth",
+            "gan/checkpoint_epoch2_Generator.pth",
+            "gan/checkpoint_epoch2_Discriminator.pth"))
+        rows = read_logs("10", ck, ("baseline", "gan"))
+        for stage, logged in rows.items():
+            for r in logged:
+                if r["tag"] == "train frames_per_sec":
+                    print(f"[10] tts_{typ} {stage} epoch {r['step']}: "
+                          f"{r['value']:.1f} valid "
+                          f"{'phones' if typ == 'duration' else 'frames'}/s "
+                          f"in the train phase  [{card}]")
+        print(f"[10] tts_{typ}: {sum(len(r) for r in rows.values())} logged "
+              f"values, all finite; checkpoints of stages 1-3 and 5 written")
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+        ckpts[typ] = ck
+    labels = os.path.join(root, "label_state_align")
+    first = None
+    # the last run on one thread: the host chain's Python (freqt's loop,
+    # the questions' regexes) holds the GIL, so threads may not pay
+    for tag, stage, workers, extra in (
+            ("baseline", "baseline/checkpoint_epoch2", 4, []),
+            ("gan", "gan/checkpoint_epoch2", 4, []),
+            ("gan_label_timings", "gan/checkpoint_epoch2", 1,
+             ["--disable-duraton-gen"])):
+        paths = {typ: os.path.join(ck, f"{stage}_Generator.pth")
+                 for typ, ck in ckpts.items()}
+        counts, forwards = tts_eval_run(card, tmp, feats, labels, tag, paths,
+                                        workers, extra)
+        first = first or forwards
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+    check_tts_predictions(card, first)
+    return totals
+
+
 def main():
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         fail("CUDA is not available: this script drives the port on a GPU")
     dev = torch.device("cuda", 0)
@@ -1850,6 +2256,7 @@ def main():
     recs.update(phase_lstm_kernels(dev, card, errs))
     recs.update(phase_linear_kernels(dev, card, errs))
     phase_vc_lstm_kernels(dev, card, errs)
+    phase_synthesis_kernels(dev, card, errs)
     none = {k: 0 for k in KERNELS}
     vc_disc = mlp_param_count([VC_STATIC, 256, 256, 1])
     paths = [("4", acoustic_hp("bfloat16"),
@@ -1915,9 +2322,13 @@ def main():
         for k, n in list(counts.items()) + list(
                 phase_vc_eval(card, tmp, checkpoint).items()):
             launches[k] += n
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, n in phase_tts_demo(card, tmp).items():
+            launches[k] += n
 
-    # launches: the main paths' runs, 4-4f, 6, 7, 8 and 9 (sru_proj_gemm
+    # launches: the main paths' runs, 4-4f, 6, 7, 8, 9 and 10 (sru_proj_gemm
     # and the scans serve several)
+    print(f"[end] all phases passed in {time.perf_counter() - started:.1f} s")
     kernels = [dict({"name": k, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[k],
                      "max_abs_err": errs[k]}, **recs[k])

@@ -10,6 +10,11 @@ trajectory under unit variances, so the training step's MLPG is one matmul.
 P is factored in banded storage with scipy; the JAX package reaches a C++
 solver for the same system where its native library is built.
 
+``mlpg`` is the full host MLPG of TTS synthesis (float64, per-dimension
+variances, unit or true): one banded SPD solve per feature dimension,
+through the C++ engine's ``banded_cholesky_solve`` where it is built and
+``scipy.linalg.solveh_banded`` otherwise, as in the JAX package.
+
 Exactness: if ``u = delta_features(s, windows)`` then ``R @ window_major(u)
 == s`` up to float rounding, since P^{-1} W*^T W* = I.
 """
@@ -104,6 +109,75 @@ def unit_variance_mlpg_matrix(windows, T, dtype=np.float32):
             rhs[t + off, k * T + t] = c
     R = scipy.linalg.solveh_banded(ab, rhs, lower=False)
     return np.ascontiguousarray(R, dtype=dtype)
+
+
+def _solveh_banded(ab, rhs):
+    """Banded SPD solve: the C++ engine's banded_cholesky_solve
+    (cpp/frontend.cpp), scipy where the engine is not built."""
+    from gantts_tpu_torch.frontend import native
+
+    if native.available():
+        return native.banded_cholesky_solve(
+            ab, np.ascontiguousarray(rhs, np.float64),
+            bandwidth=ab.shape[0] - 1)
+    return scipy.linalg.solveh_banded(ab, rhs, lower=False)
+
+
+def mlpg(means, variances, windows):
+    """Full MLPG with per-dimension (frame-invariant) variances
+    (``nnmnkwii.paramgen.mlpg`` as the reference calls it at
+    evaluation_tts.py:72-74, unit variances, and :96-98, true variances).
+
+    ``means`` is (T, K*D) with per-frame layout ``[win0-block, win1-block,
+    ..., win{K-1}-block]`` (each block D wide); ``variances`` is (K*D,) or
+    (T, K*D) (only frame-invariant variances, all the reference uses; the
+    first row is taken).  Returns the (T, D) static trajectory, solved per
+    dimension as the banded SPD system ``(W*^T S^-1 W*) y = W*^T S^-1 u``:
+    O(T b^2 D), float64.
+    """
+    means = np.asarray(means, dtype=np.float64)
+    T, KD = means.shape
+    K = len(windows)
+    if KD % K:
+        raise ValueError(f"means dim {KD} not divisible by num windows {K}")
+    D = KD // K
+    variances = np.asarray(variances, dtype=np.float64)
+    if variances.ndim == 2:
+        variances = variances[0]
+    if variances.shape[-1] != KD:
+        raise ValueError("variances must have K*D entries")
+
+    b = window_half_bandwidth(windows)
+    out = np.empty((T, D), dtype=np.float64)
+    # the precision differs per dimension only through the scalar
+    # 1/sigma^2_kd weights, so each dimension assembles its own band
+    win_info = [_check_window(w) for w in windows]
+    for d in range(D):
+        ab = np.zeros((b + 1, T), dtype=np.float64)
+        rhs = np.zeros(T, dtype=np.float64)
+        for k, (l, u, coeffs) in enumerate(win_info):
+            inv_var = 1.0 / variances[k * D + d]
+            u_kd = means[:, k * D + d]
+            for k1 in range(-l, u + 1):
+                c1 = coeffs[l + k1]
+                if c1 == 0.0:
+                    continue
+                # rhs: (W_k^T S^-1 u)[t+k1] += c1 * inv_var * u_kd[t]
+                t0, t1 = max(0, -k1), min(T, T - k1)
+                rhs[np.arange(t0, t1) + k1] += c1 * inv_var * u_kd[t0:t1]
+                for k2 in range(k1, u + 1):
+                    c2 = coeffs[l + k2]
+                    if c2 == 0.0:
+                        continue
+                    s0 = max(0, -k1, -k2)
+                    s1 = min(T, T - k1, T - k2)
+                    if s1 <= s0:
+                        continue
+                    i = np.arange(s0, s1) + k1
+                    j = np.arange(s0, s1) + k2
+                    ab[b + i - j, j] += c1 * c2 * inv_var
+        out[:, d] = _solveh_banded(ab, rhs[:, None])[:, 0]
+    return out
 
 
 def delta_features(x, windows):

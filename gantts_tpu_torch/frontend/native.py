@@ -15,9 +15,10 @@ ABI, the front end runs its NumPy versions (``world.py`` and ``sptk.py``
 dispatch on ``available()`` and the ``has_*`` checks), and the reason is
 printed once on stderr.  ``engine()`` says which served.
 
-The library also exports ``dtw_path`` and ``banded_cholesky_solve`` for
-feature extraction, which the port does not have yet; they are bound when
-it comes.
+Feature extraction and TTS synthesis reach two more entry points:
+``dtw_path`` (``preprocessing/alignment.py``, the VC corpus's alignment) and
+``banded_cholesky_solve`` (``core/windows.py``'s host MLPG), each with a
+NumPy or scipy counterpart where there is no library.
 """
 
 from __future__ import annotations
@@ -128,8 +129,13 @@ def _bind(lib):
     c_double_p = ctypes.POINTER(ctypes.c_double)
     c_int64_p = ctypes.POINTER(ctypes.c_int64)
     c_uint8_p = ctypes.POINTER(ctypes.c_uint8)
+    c_int32_p = ctypes.POINTER(ctypes.c_int32)
     i64, dbl, i32 = ctypes.c_int64, ctypes.c_double, ctypes.c_int
     signatures = {
+        "dtw_path": ([c_double_p, i64, c_double_p, i64, i64, c_int32_p,
+                      c_int32_p], i64),
+        "banded_cholesky_solve": ([c_double_p, i64, i32, c_double_p, i64],
+                                  i32),
         "mlsa_synthesis": ([c_double_p, i64, c_double_p, i64, i32, dbl, i32,
                             i32, c_double_p], None),
         "ola_add": ([c_double_p, i64, c_double_p, i64, i64, dbl], None),
@@ -310,3 +316,38 @@ def ola_add(out, ir, offset, gain=1.0):
     lib.ola_add(_ptr(out), len(out), _ptr(ir), len(ir),
                 ctypes.c_int64(int(offset)), ctypes.c_double(float(gain)))
 
+
+def dtw_path(x, y):
+    """C++ twin of alignment._dtw_path_numpy: the exact DTW path between
+    (Tx, D) and (Ty, D) as two int64 index arrays."""
+    lib = _load()
+    x = np.ascontiguousarray(x, dtype=np.float64)
+    y = np.ascontiguousarray(y, dtype=np.float64)
+    if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1] \
+            or not len(x) or not len(y):
+        raise ValueError(f"dtw_path: shapes {x.shape} and {y.shape}, "
+                         f"expected (Tx, D) and (Ty, D), Tx and Ty > 0")
+    tx, ty = x.shape[0], y.shape[0]
+    px = np.zeros(tx + ty, dtype=np.int32)
+    py = np.zeros(tx + ty, dtype=np.int32)
+    k = lib.dtw_path(_ptr(x), tx, _ptr(y), ty, x.shape[1],
+                     px.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                     py.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return px[:k].astype(np.int64), py[:k].astype(np.int64)
+
+
+def banded_cholesky_solve(ab, rhs, bandwidth):
+    """Solve the banded SPD system given scipy upper-banded storage ``ab``;
+    rhs (T, k) solved out-of-place."""
+    lib = _load()
+    ab = np.ascontiguousarray(ab, dtype=np.float64)
+    out = np.ascontiguousarray(rhs, dtype=np.float64).copy()
+    if out.ndim != 2 or ab.shape != (int(bandwidth) + 1, out.shape[0]):
+        raise ValueError(f"banded_cholesky_solve: ab {ab.shape} and rhs "
+                         f"{out.shape}, expected (bandwidth + 1, T) and "
+                         f"(T, k)")
+    r = lib.banded_cholesky_solve(_ptr(ab), out.shape[0], int(bandwidth),
+                                  _ptr(out), out.shape[1])
+    if r != 0:
+        raise np.linalg.LinAlgError("banded matrix not SPD")
+    return out

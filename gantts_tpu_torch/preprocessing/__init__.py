@@ -1,12 +1,16 @@
-"""Normalization stats, scaling and trajectory smoothing on the host (NumPy,
-float64 where it matters): the port's own copy of the part of
-gantts_tpu/preprocessing/__init__.py that training and VC synthesis use (the
-data pipeline's scaling, the stats that ``train/setup.py`` collects and
-saves, and the modulation-spectrum smoothing of ``synthesis.py``)."""
+"""Normalization stats, scaling, trajectory smoothing and frame utilities on
+the host (NumPy, float64 where it matters): the port's own copy of
+gantts_tpu/preprocessing/__init__.py.  Training uses the scaling and the
+stats that ``train/setup.py`` collects and saves; synthesis the smoothing;
+feature extraction the frame utilities (``trim_zeros_frames``,
+``adjust_frame_length(s)``, ``interp1d``) and ``alignment.DTWAligner``."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from gantts_tpu_torch.core.windows import delta_features  # noqa: F401
+from gantts_tpu_torch.preprocessing.alignment import DTWAligner  # noqa: F401
 
 
 def _handle_zeros(scale):
@@ -121,3 +125,84 @@ def modspec_smoothing(y, modfs, n=4096, cutoff=50):
     s[freqs > cutoff] = 0.0
     out = np.fft.irfft(s, n=n, axis=0)[:T]
     return out.astype(y.dtype)
+
+
+def trim_zeros_frames(x, eps=1e-7):
+    """Drop trailing frames whose L1 norm is < eps (prepare_features_vc.py:49)."""
+    T = x.shape[0]
+    s = np.abs(x).sum(axis=tuple(range(1, x.ndim)))
+    keep = T
+    while keep > 0 and s[keep - 1] < eps:
+        keep -= 1
+    return x[:keep]
+
+
+def adjust_frame_length(x, pad=True, divisible_by=1):
+    """Pad (with zeros) or truncate one array so T % divisible_by == 0."""
+    T = x.shape[0]
+    if divisible_by > 1:
+        rem = T % divisible_by
+        if rem:
+            if pad:
+                T = T + divisible_by - rem
+            else:
+                T = T - rem
+    return _fix_length(x, T)
+
+
+def adjust_frame_lengths(x, y, pad=True, ensure_even=False, divisible_by=1):
+    """Make two arrays share a frame count (prepare_features_vc.py:113-115).
+
+    If ``pad``, both are zero-padded up to the max length, else truncated to
+    the min; then the common length is adjusted to ``divisible_by``.
+    """
+    if ensure_even:
+        divisible_by = 2
+    Tx, Ty = x.shape[0], y.shape[0]
+    T = max(Tx, Ty) if pad else min(Tx, Ty)
+    if divisible_by > 1:
+        rem = T % divisible_by
+        if rem:
+            T = T + divisible_by - rem if pad else T - rem
+    return _fix_length(x, T), _fix_length(y, T)
+
+
+def _fix_length(x, T):
+    if x.shape[0] == T:
+        return x
+    if x.shape[0] > T:
+        return x[:T]
+    pad_width = [(0, T - x.shape[0])] + [(0, 0)] * (x.ndim - 1)
+    return np.pad(x, pad_width, mode="constant")
+
+
+def interp1d(f0, kind="slinear"):
+    """Fill unvoiced (zero) regions of an F0/lf0 trajectory by interpolation
+    (``nnmnkwii.preprocessing.interp1d``, prepare_features_tts.py:136).
+
+    ``f0`` is (T,) or (T, 1); zeros are treated as unvoiced and replaced by
+    scipy interpolation over the voiced samples; leading/trailing unvoiced
+    regions take the nearest voiced value.  Quadratic or cubic interpolation
+    over fewer than 4 voiced samples falls back to slinear (2-3 samples) or
+    to the one voiced value.
+    """
+    import scipy.interpolate
+
+    squeeze = f0.ndim == 2
+    v = f0.reshape(-1).astype(np.float64)
+    nz = np.nonzero(v)[0]
+    if len(nz) == 0:
+        return f0
+    if len(nz) < 4 and kind in ("quadratic", "cubic"):
+        kind = "slinear" if len(nz) >= 2 else "nearest"
+    if len(nz) == 1:
+        out = np.full_like(v, v[nz[0]])
+    else:
+        f = scipy.interpolate.interp1d(
+            nz, v[nz], kind=kind, bounds_error=False,
+            fill_value=(v[nz[0]], v[nz[-1]]))
+        out = v.copy()
+        zeros = np.where(v == 0)[0]
+        out[zeros] = f(zeros)
+    out = out.astype(f0.dtype)
+    return out.reshape(f0.shape) if squeeze else out

@@ -1,13 +1,23 @@
-"""VC synthesis on the port (counterpart of the VC half of
-gantts_tpu/synthesis.py): the generator's forward on one utterance, and the
-whole conversion chain from a waveform.
+"""VC and TTS synthesis on the port (counterpart of gantts_tpu/synthesis.py):
+the generator's forward on one utterance, the whole conversion chain from a
+waveform, and two-stage TTS from an HTS label.
 
+  model_forward     one generator on one utterance (both uses below);
   apply_vc_model    the generator on one normalized utterance, either
                     protocol, returning the static mel-cepstra;
   vc_from_waveform  WORLD analysis, mel-cepstra, modulation-spectrum
                     smoothing, deltas, the generator, then the MLSA filter
                     on the source waveform (``diffvc``) or WORLD synthesis
-                    (evaluation_vc.py's chain).
+                    (evaluation_vc.py's chain);
+  gen_parameters    per-stream host MLPG and denormalization of a predicted
+                    acoustic track (evaluation_tts.py:51-100);
+  gen_waveform      those parameters, the optional Merlin post-filter, then
+                    WORLD synthesis (evaluation_tts.py:103-130);
+  gen_duration      the duration model's prediction written back into the
+                    label's timings (evaluation_tts.py:143-179);
+  tts_from_label    labels -> durations -> frame-level linguistic features
+                    -> the acoustic model -> waveform
+                    (evaluation_tts.py:182-225).
 
 The generator runs on its own device in eval mode under ``torch.no_grad()``;
 the vocoder work runs on the host in float64 (``frontend/``).  The forward
@@ -22,7 +32,10 @@ cache to keep:
   * any other model is padded to ``batch_bucket_multiple``, trimmed, and its
     output goes through the dense R at the true length.
 
-TTS synthesis is not here yet.
+Each TTS model builds its noise input (``generator_add_noise``) from its
+own bundle, a fix of the reference, which builds the acoustic model's from
+the duration model's hparams (evaluation_tts.py:219), kept from the JAX
+package.
 """
 
 from __future__ import annotations
@@ -35,11 +48,14 @@ from gantts_tpu_torch.core.fast_mlpg import DEFAULT_HALFWIDTH, MLPGStencil
 from gantts_tpu_torch.core.paramgen import multi_stream_mlpg
 from gantts_tpu_torch.core.windows import (
     delta_features,
+    mlpg,
     unit_variance_mlpg_matrix,
 )
 from gantts_tpu_torch.data import round_up
 from gantts_tpu_torch.frontend import sptk, world
+from gantts_tpu_torch.io import hts, merlin
 from gantts_tpu_torch.models import include_parameter_generation
+from gantts_tpu_torch.postfilters import merlin_post_filter
 
 MIN_STENCIL_T = 4 * DEFAULT_HALFWIDTH + 2
 
@@ -137,3 +153,155 @@ def vc_from_waveform(model, x, fs, data_mean, data_std, hp, diffvc=True):
             f0, spectrogram, aperiodicity, fs, hp.frame_period)
 
     return waveform, inputs, outputs
+
+
+# ---------------------------------------------------------------------------
+# TTS
+# ---------------------------------------------------------------------------
+
+def gen_parameters(y_predicted, Y_mean, Y_std, hp_acoustic,
+                   mge_training=True):
+    """Per-stream MLPG and denormalization (evaluation_tts.py:51-100).
+
+    mge_training=True: MLPG with unit variances on the normalized features,
+    then denormalize (MGE-trained models); else denormalize first and use
+    the training set's variances."""
+    hp = hp_acoustic
+    mgc_dim, lf0_dim, vuv_dim, bap_dim = hp.stream_sizes
+    lf0_start = mgc_dim
+    vuv_start = lf0_start + lf0_dim
+    bap_start = vuv_start + vuv_dim
+    windows = hp.windows
+    K = len(windows)
+
+    if mge_training:
+        mgc = mlpg(y_predicted[:, :lf0_start], np.ones(mgc_dim), windows)
+        lf0 = mlpg(y_predicted[:, lf0_start:vuv_start], np.ones(lf0_dim),
+                   windows)
+        vuv = y_predicted[:, vuv_start]
+        bap = mlpg(y_predicted[:, bap_start:], np.ones(bap_dim), windows)
+
+        mgc = P.inv_scale(mgc, Y_mean[:mgc_dim // K], Y_std[:mgc_dim // K])
+        lf0 = P.inv_scale(lf0, Y_mean[lf0_start:lf0_start + lf0_dim // K],
+                          Y_std[lf0_start:lf0_start + lf0_dim // K])
+        bap = P.inv_scale(bap, Y_mean[bap_start:bap_start + bap_dim // K],
+                          Y_std[bap_start:bap_start + bap_dim // K])
+        vuv = P.inv_scale(vuv, Y_mean[vuv_start], Y_std[vuv_start])
+    else:
+        y = P.inv_scale(y_predicted, Y_mean, Y_std)
+        Y_var = Y_std * Y_std
+        mgc = mlpg(y[:, :lf0_start], Y_var[:lf0_start], windows)
+        lf0 = mlpg(y[:, lf0_start:vuv_start], Y_var[lf0_start:vuv_start],
+                   windows)
+        vuv = y[:, vuv_start]
+        bap = mlpg(y[:, bap_start:], Y_var[bap_start:], windows)
+
+    return mgc, lf0, vuv, bap
+
+
+def gen_waveform(y_predicted, Y_mean, Y_std, hp_acoustic, post_filter=False,
+                 coef=1.4, fs=16000, mge_training=True):
+    """Predicted acoustic features -> waveform (evaluation_tts.py:103-130):
+    frames with vuv < 0.5 are unvoiced, lf0 is exponentiated elsewhere, and
+    the waveform is scaled to a peak of 32767.  Returns (waveform, mgc,
+    lf0, vuv, bap)."""
+    alpha = sptk.mcepalpha(fs)
+    fftlen = world.get_cheaptrick_fft_size(fs)
+    frame_period = hp_acoustic.frame_period
+
+    mgc, lf0, vuv, bap = gen_parameters(
+        y_predicted, Y_mean, Y_std, hp_acoustic, mge_training)
+
+    if post_filter:
+        mgc = merlin_post_filter(mgc, alpha, coef=coef)
+
+    spectrogram = sptk.mc2sp(mgc, alpha=alpha, fftlen=fftlen)
+    aperiodicity = world.decode_aperiodicity(
+        bap.astype(np.float64), fs, fftlen)
+    f0 = lf0.copy().reshape(-1)
+    vuv_flat = np.asarray(vuv).reshape(-1)
+    f0[vuv_flat < 0.5] = 0
+    nz = np.nonzero(f0)
+    f0[nz] = np.exp(f0[nz])
+
+    generated = world.synthesize(
+        f0.astype(np.float64), spectrogram.astype(np.float64),
+        aperiodicity.astype(np.float64), fs, frame_period)
+    generated = generated / np.max(np.abs(generated)) * 32767  # int16 range
+
+    return generated, mgc, lf0, vuv, bap
+
+
+def generator_input(hp, x):
+    """The generator's input: ``x``, with uniform noise of
+    ``generator_noise_dim`` columns appended when the bundle asks for it
+    (evaluation_tts.py:133-140), from a fresh RandomState(1234) on each
+    call."""
+    if hp.generator_add_noise:
+        rs = np.random.RandomState(1234)
+        z = rs.rand(x.shape[0], hp.generator_noise_dim).astype(np.float32)
+        return np.concatenate([x, z], axis=-1)
+    return x
+
+
+def gen_duration(label_path, duration_model, X_min, X_max, Y_mean, Y_std,
+                 hp_duration, binary_dict, continuous_dict):
+    """The duration model's prediction written back into the labels
+    (evaluation_tts.py:143-179): rounded, values <= 0 set to 1; a
+    state-aligned label takes one duration per state line, a phone-aligned
+    one the sum over states.  Returns the relabelled HTSLabelFile."""
+    hts_labels = hts.load(label_path)
+    feats = merlin.linguistic_features(
+        hts_labels, binary_dict, continuous_dict,
+        add_frame_features=hp_duration.add_frame_features,
+        subphone_features=hp_duration.subphone_features).astype(np.float32)
+
+    feats = P.minmax_scale(feats, X_min, X_max, feature_range=(0.01, 0.99))
+    feats = generator_input(hp_duration, feats.astype(np.float32))
+
+    pred = model_forward(duration_model, feats.astype(np.float32),
+                         hp_duration)
+    pred = P.inv_scale(pred.astype(np.float64), Y_mean, Y_std)
+    pred = np.round(pred)
+    pred[pred <= 0] = 1
+    if hts_labels.is_state_alignment:
+        durations = pred.reshape(-1)
+    else:
+        durations = pred.sum(axis=-1)
+    hts_labels.set_durations(durations)
+    return hts_labels
+
+
+def tts_from_label(models, label_path, X_min, X_max, Y_mean, Y_std,
+                   hp_duration, hp_acoustic, binary_dict, continuous_dict,
+                   post_filter=False, apply_duration_model=True, coef=1.4,
+                   fs=16000, mge_training=True):
+    """Two-stage TTS synthesis (evaluation_tts.py:182-225).  ``models`` and
+    the stats are dicts keyed "duration" and "acoustic".  Silence frames
+    are deleted from the acoustic model's input.  Returns gen_waveform's
+    (waveform, mgc, lf0, vuv, bap)."""
+    if apply_duration_model:
+        labels = gen_duration(
+            label_path, models["duration"], X_min["duration"],
+            X_max["duration"], Y_mean["duration"], Y_std["duration"],
+            hp_duration, binary_dict, continuous_dict)
+    else:
+        labels = hts.load(label_path)
+
+    feats = merlin.linguistic_features(
+        labels, binary_dict, continuous_dict,
+        add_frame_features=hp_acoustic.add_frame_features,
+        subphone_features=hp_acoustic.subphone_features)
+    indices = labels.silence_frame_indices()
+    feats = np.delete(feats, indices[indices < len(feats)], axis=0)
+
+    feats = P.minmax_scale(feats, X_min["acoustic"], X_max["acoustic"],
+                           feature_range=(0.01, 0.99)).astype(np.float32)
+    feats = generator_input(hp_acoustic, feats)
+
+    acoustic_predicted = model_forward(models["acoustic"], feats, hp_acoustic)
+
+    return gen_waveform(acoustic_predicted.astype(np.float64),
+                        Y_mean["acoustic"], Y_std["acoustic"], hp_acoustic,
+                        post_filter, coef=coef, fs=fs,
+                        mge_training=mge_training)

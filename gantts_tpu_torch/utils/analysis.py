@@ -104,6 +104,25 @@ def write_analysis_report(path, generated, natural_dir, static_dim, modfs):
           {k: v for k, v in report.items() if not isinstance(v, list)})
 
 
+def run_in_processes(fn, jobs, workers):
+    """``[fn(*job) for job in jobs]``, in this process when ``workers`` <= 1,
+    else over ``workers`` spawned processes (fresh interpreters: safe in a
+    process that holds CUDA or threads, which a fork is not).  ``fn`` and
+    the jobs must pickle; the feature extraction's per-utterance work is
+    Python-bound (regex questions, freqt) and gains nothing from threads.
+    A caller whose ``__main__`` runs this without the ``if __name__ ==
+    "__main__"`` guard gets BrokenProcessPool, not a hang."""
+    if workers <= 1:
+        return [fn(*job) for job in jobs]
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(workers,
+                             mp_context=mp.get_context("spawn")) as pool:
+        futures = [pool.submit(fn, *job) for job in jobs]
+        return [f.result() for f in futures]
+
+
 def run_utterance_jobs(process, jobs, workers):
     """Run ``process(*job)`` over every job, thread-fanned when workers > 1
     (the per-utterance eval work is C++/BLAS-bound, so threads scale)."""

@@ -868,3 +868,93 @@ def test_stencil_mlpg_on_card_matches_dense_r(cuda, Tn):
     assert float((dyn[0] - dense[0]).abs().max()) < 2e-5
     assert float((dyn[1, :short] - ref_s).abs().max()) < 2e-5
     assert (dyn[1, short:] == 0).all()
+
+
+# TTS synthesis's shapes: one utterance (B=1) in the bundles' float32,
+# padded to the bucket multiple of 32 with its true length, for the
+# duration model (phones) and the acoustic model (frames), each layer width.
+SYNTH_CASES = [(64, 57, 416), (64, 57, 1024), (608, 597, 425),
+               (608, 597, 1024)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("Tn,length,Dn", SYNTH_CASES)
+def test_sru_forward_kernels_at_synthesis_shapes(cuda, Tn, length, Dn,
+                                                 reverse):
+    rs = np.random.RandomState(Dn)
+    Hn = 512
+    x2 = torch.tensor(rs.randn(Tn, Dn), dtype=torch.float32, device=cuda)
+    w = torch.tensor(rs.uniform(-1, 1, (Dn, 4 * Hn)) / Hn ** 0.5,
+                     dtype=torch.float32, device=cuda)
+    bias4 = torch.tensor(np.r_[np.zeros(Hn), rs.randn(2 * Hn) * 0.1,
+                               np.zeros(Hn)], dtype=torch.float32,
+                         device=cuda)
+    lengths = torch.tensor([length], dtype=torch.int32, device=cuda)
+    K.reset_launch_counts()
+    u_p = K.sru_proj_gemm_plain(x2, w)
+    assert _rel(K.sru_proj_gemm(x2, w), u_p) < 1e-4
+    u = u_p.reshape(Tn, 1, 4 * Hn)
+    h_k, c_k = K.sru_fwd_scan(u, bias4, lengths, reverse, 1)
+    h_p, c_p = K.sru_fwd_scan_plain(u, bias4, lengths, reverse, 1)
+    assert _rel(h_k, h_p) < 1e-4 and _rel(c_k, c_p) < 1e-4
+    assert (h_k[length:] == 0).all()
+    torch.cuda.synchronize()
+    assert (K.launch_counts["sru_proj_gemm"],
+            K.launch_counts["sru_fwd_scan"]) == (1, 1)
+
+
+@pytest.mark.parametrize("bundle", ["tts_duration", "tts_acoustic"])
+def test_tts_generator_forward_on_card_matches_cpu(cuda, bundle):
+    """The bundle's full-width generator (6x512 bidirectional relu SRU,
+    float32) through synthesis.model_forward on one utterance, on the card
+    against a CPU copy: within 2e-5 of scale, 12 + 12 launches and no
+    backward."""
+    import copy
+
+    from gantts_tpu_torch import hparams, synthesis
+    from gantts_tpu_torch.models import create_model
+
+    hp = getattr(hparams, bundle).copy()
+    in_dim, out_dim, Tn = ((416, 5, 37) if bundle == "tts_duration"
+                           else (425, 187, 450))
+    hp.generator_params.update(in_dim=in_dim, out_dim=out_dim)
+    torch.manual_seed(0)
+    model = create_model(hp.generator, compute_dtype=hp.compute_dtype,
+                         device="cpu", **hp.generator_params)
+    x = np.random.RandomState(1).rand(Tn, in_dim).astype(np.float32)
+    y_cpu = synthesis.model_forward(model, x, hp)
+    model_card = copy.deepcopy(model).to(cuda)
+    K.reset_launch_counts()
+    y_card = synthesis.model_forward(model_card, x, hp)
+    torch.cuda.synchronize()
+    assert {k: K.launch_counts[k] for k in ("sru_proj_gemm", "sru_fwd_scan",
+                                            "sru_bwd_scan")} == {
+        "sru_proj_gemm": 12, "sru_fwd_scan": 12, "sru_bwd_scan": 0}
+    assert y_card.shape == y_cpu.shape == (Tn, out_dim)
+    assert np.abs(y_card - y_cpu).max() <= 2e-5 * np.abs(y_cpu).max()
+
+
+@pytest.mark.parametrize("Tx,Ty", [(1, 7), (120, 97), (400, 520)])
+def test_feature_engine_on_card_machine_matches_numpy(cuda, Tx, Ty):
+    """The host engine's DTW and banded Cholesky solve, built by the port's
+    loader on the card's machine, against their NumPy and scipy versions."""
+    import scipy.linalg
+
+    from gantts_tpu_torch.frontend import native
+    from gantts_tpu_torch.preprocessing import alignment
+
+    assert native.available(), native.engine()
+    rs = np.random.RandomState(Tx)
+    x = np.cumsum(rs.randn(Tx, 6), axis=0)
+    y = np.cumsum(rs.randn(Ty, 6), axis=0)
+    for got, ref in zip(native.dtw_path(x, y),
+                        alignment._dtw_path_numpy(x, y)):
+        np.testing.assert_array_equal(got, ref)
+    b = 2
+    ab = np.zeros((b + 1, Ty))
+    ab[-1] = 4.0 + rs.rand(Ty)
+    ab[:-1] = rs.uniform(-0.5, 0.5, size=(b, Ty))
+    rhs = rs.randn(Ty, 3)
+    ref = scipy.linalg.solveh_banded(ab, rhs, lower=False)
+    got = native.banded_cholesky_solve(ab, rhs, bandwidth=b)
+    assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()

@@ -41,7 +41,12 @@ def test_port_imports_without_jax():
             "gantts_tpu_torch.frontend.native",
             "gantts_tpu_torch.frontend.world",
             "gantts_tpu_torch.frontend.sptk",
-            "gantts_tpu_torch.utils.analysis"} <= set(MODULES)
+            "gantts_tpu_torch.utils.analysis", "gantts_tpu_torch.io.hts",
+            "gantts_tpu_torch.io.merlin", "gantts_tpu_torch.postfilters",
+            "gantts_tpu_torch.preprocessing.alignment",
+            "gantts_tpu_torch.evaluation_tts",
+            "gantts_tpu_torch.prepare_features_tts",
+            "gantts_tpu_torch.prepare_features_vc"} <= set(MODULES)
     proc = _run(
         "import importlib, os, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
