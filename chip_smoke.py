@@ -10,7 +10,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   1. device: require CUDA, print the card's name and power limit;
   2. build the CUDA kernels from gantts_tpu_torch/kernels/csrc/, one nvcc
      per source, all started together, and check with cuobjdump that the
-     bf16 GEMM's SASS holds wgmma (HGMMA) and TMA loads (UTMALDG);
+     bf16 GEMM's SASS holds wgmma (HGMMA) and TMA loads (UTMALDG), and
+     that each instance of the f32 GEMM holds FFMA and vector shared-memory
+     loads (LDS.64/128) and no local-memory traffic (LDL/STL, a spill) and
+     no tensor-core instruction (HMMA/HGMMA);
   3. hold each kernel against its plain PyTorch version at the training
      steps' shapes (T=512, B=20, H=512, D in {425, 1024}, float32 and
      bfloat16; the SRU kernels in both directions with relu, the LSTM
@@ -21,8 +24,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      one-direction LSTM kernels and the GEMM also at the VC path's shapes,
      D in {177, 512}, in float32 (the cooperative kernels) and bfloat16;
      the SRU GEMM and forward scan also at TTS synthesis's shapes, float32
-     at B=1, T=64 with D in {416, 1024} and T=608 with D in {425, 1024}),
-     and time both,
+     at B=1, T=64 with D in {416, 1024} and T=608 with D in {425, 1024};
+     the f32 GEMM at every shape the f32 paths give it, F32_GEMM_SHAPES,
+     also launched twice for identical bits and timed beside torch.mm
+     with TF32 off), and time both,
      beside the library call that computes the same function where there
      is one (cuBLAS for the GEMM, at every (K, N) the main paths give it; a
      cuDNN bidirectional LSTM layer for the LSTM scans); the LSTM
@@ -43,7 +48,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      T=512, the 59 -> 2x256 -> 1 discriminator on the static mel-cepstra,
      dense MLPG, Adagrad, bfloat16) with (4e) In2OutRNNHighwayNet, a 3x512
      unidirectional LSTM, and (4f) the bundle's In2OutHighwayNet, whose MLP
-     trunk launches none of the kernels;
+     trunk launches none of the kernels; (4g) the shipped tts_acoustic
+     step in the bundle's own float32: (4)'s 6x512 bidirectional SRU, the
+     f32 kernels (sru_proj_gemm's FMA kernel, 12 launches a step);
   5. one small float32 step on the card against the same step on the CPU
      (where every kernel wrapper takes its plain version), same weights,
      and the same step on the card with TF32 matmuls as a control that the
@@ -80,7 +87,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      utterance takes, and the first utterance's predictions of both models
      against CPU copies of the generators.
 
-Each of (4) to (4f) ends with a torch.profiler trace of a few more
+Each of (4) to (4g) ends with a torch.profiler trace of a few more
 of its steps, which prints where the device time goes and the idle share
 the trace measured (nothing is written to disk).
 
@@ -302,33 +309,82 @@ def write_acoustic_corpus(dst, num=30, lin_dim=LIN_DIM, mgc_dim=60,
         np.save(os.path.join(dst, "Y_acoustic", name), y.astype(np.float32))
 
 
+# Phase 2's SASS checks, by function: (what the SASS must hold, what it
+# must not), each a regular expression matched against an instruction line.
+SASS_RULES = {
+    # wgmma and TMA loads: without them no tensor-core rate
+    "proj_gemm_bf16": ({"HGMMA": r"\bHGMMA\b", "UTMALDG": r"\bUTMALDG\b"},
+                       {}),
+    # f32 FMAs fed by vector shared-memory loads, no spills, and no tensor
+    # cores (TF32 would lose the exact f32 products)
+    "proj_gemm_f32": ({"FFMA": r"\bFFMA\b",
+                       "LDS.64/128": r"\bLDS(\.U)?\.(64|128)\b"},
+                      {"LDL/STL": r"\b(LDL|STL)\b",
+                       "HMMA/HGMMA": r"\bH(G)?MMA\b"}),
+}
+
+
+def sass_counts(text):
+    """Counts of SASS_RULES' patterns in each GEMM instance of cuobjdump's
+    output ``text``, by its mangled name (the f32 kernel's split sum is not
+    a GEMM and is left out)."""
+    import re
+
+    out, rules = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            rules = next((r for k, r in SASS_RULES.items()
+                          if k in name and "split_sum" not in name), None)
+            if rules is not None:
+                out[name] = dict.fromkeys(list(rules[0]) + list(rules[1]), 0)
+        elif rules is not None:
+            for op, pattern in list(rules[0].items()) + list(rules[1].items()):
+                out[name][op] += bool(re.search(pattern, line))
+    return out
+
+
 def check_gemm_sass(lib_path):
-    """Phase 2: the bf16 GEMM's SASS, from cuobjdump, must hold wgmma
-    (HGMMA) and TMA loads (UTMALDG): without them it cannot reach the
-    tensor cores' full rate."""
+    """Phase 2: each GEMM's SASS, from cuobjdump, must hold what its design
+    rests on and nothing it must avoid (SASS_RULES): the bf16 kernel wgmma
+    (HGMMA) and TMA loads (UTMALDG); each instance of the f32 kernel FFMA
+    and vector shared-memory loads, and no local-memory traffic (a spill)
+    and no tensor-core instruction."""
     from gantts_tpu_torch.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         tool = shutil.which("cuobjdump")
     if tool is None:
-        print("[2] cuobjdump is missing: the GEMM's SASS is not checked")
-        return
+        fail("cuobjdump is missing: the GEMMs' SASS cannot be checked")
     proc = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, timeout=300)
     if proc.returncode != 0:
         fail(f"cuobjdump failed: {proc.stderr.strip()[-500:]}")
-    counts, name = {"HGMMA": 0, "UTMALDG": 0}, ""
-    for line in proc.stdout.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :", 1)[1]
-        elif "proj_gemm_bf16" in name:
-            for op in counts:
-                counts[op] += op in line
-    print(f"[2] SASS of proj_gemm_bf16: {counts['HGMMA']} HGMMA, "
-          f"{counts['UTMALDG']} UTMALDG instructions")
-    if not all(counts.values()):
-        fail("the bf16 GEMM's SASS lacks wgmma (HGMMA) or TMA (UTMALDG)")
+    counts = sass_counts(proc.stdout)
+    for name, c in counts.items():
+        print(f"[2] SASS of {name}: " + ", ".join(
+            f"{n} {op}" for op, n in c.items()))
+    problems = sass_problems(counts)
+    if problems:
+        fail("; ".join(problems))
+
+
+def sass_problems(counts):
+    """What sass_counts' ``counts`` break of SASS_RULES: a GEMM with no
+    function at all, or a function lacking what it needs or holding what it
+    must avoid."""
+    problems = []
+    for key, (need, avoid) in SASS_RULES.items():
+        found = {n: c for n, c in counts.items() if key in n}
+        if not found:
+            problems.append(f"cuobjdump shows no function named like {key}")
+        for name, c in found.items():
+            lacks = [op for op in need if not c[op]]
+            holds = [op for op in avoid if c[op]]
+            if lacks or holds:
+                problems.append(f"{name}'s SASS lacks {lacks}, holds {holds}")
+    return problems
 
 
 def check(kernel, what, dt, D, got, ref, lim, errs):
@@ -450,24 +506,21 @@ def phase_kernels(dev, card, errs):
               K.sru_proj_gemm(x2, w_c), K.sru_proj_gemm_plain(x2, w_c),
               TOL[bf], errs)
 
-    # times at the main paths' shapes: bf16 I/O at every (K, N) the paths
-    # give the GEMM (K = 425, which the wrapper copies into rows of 432, or
+    # times at the main paths' shapes: the bf16 GEMM at every (K, N) the
+    # paths give it (K = 425, which the wrapper copies into rows of 432, or
     # 2H; N = 4H, or 8H on the LSTM path) beside torch.mm, and at K = 432
-    # (an x already 8-aligned, no copy); f32 at N = 4H
+    # (an x already 8-aligned, no copy); the f32 GEMM's are phase_f32_gemm's
     padded = LIN_DIM + -LIN_DIM % 8
-    gemm_shapes = {bf: [(D, N) for D in (2 * H, LIN_DIM, padded)
-                        for N in (4 * H, 8 * H)],
-                   torch.float32: [(2 * H, 4 * H), (LIN_DIM, 4 * H)]}
     times, gemm_library = {}, {}
+    for D, N in [(D, N) for D in (2 * H, LIN_DIM, padded)
+                 for N in (4 * H, 8 * H)]:
+        x2 = torch.randn((T * B, D), generator=gen, device=dev).to(bf)
+        w_c = uniform(D, N).to(bf)
+        times[("sru_proj_gemm", bf, D, N)] = (
+            time_ms(lambda: K.sru_proj_gemm(x2, w_c), 20),
+            time_ms(lambda: K.sru_proj_gemm_plain(x2, w_c), 20))
+        gemm_library[(D, N)] = time_ms(lambda: torch.mm(x2, w_c), 20)
     for dt in (torch.bfloat16, torch.float32):
-        for D, N in gemm_shapes[dt]:
-            x2 = torch.randn((T * B, D), generator=gen, device=dev).to(dt)
-            w_c = uniform(D, N).to(dt)
-            times[("sru_proj_gemm", dt, D, N)] = (
-                time_ms(lambda: K.sru_proj_gemm(x2, w_c), 20),
-                time_ms(lambda: K.sru_proj_gemm_plain(x2, w_c), 20))
-            if dt == bf:
-                gemm_library[(D, N)] = time_ms(lambda: torch.mm(x2, w_c), 20)
         u = torch.randn((T, B, 4 * H), generator=gen, device=dev).to(dt)
         bias4 = uniform(4 * H)
         gh = torch.randn((T, B, H), generator=gen, device=dev).to(dt)
@@ -485,30 +538,38 @@ def phase_kernels(dev, card, errs):
     for (kernel, dt, D, N), (ms, plain_ms) in times.items():
         shape, lib = "", ""
         if D:
-            shape = f"K={D} N={N} ({2 * M * D * N / ms / 1e9:.1f} TFLOP/s) "
-        if (D, N) in gemm_library and dt == bf:
             lib_ms = gemm_library[(D, N)]
+            shape = f"K={D} N={N} ({2 * M * D * N / ms / 1e9:.1f} TFLOP/s) "
             lib = f"  torch.mm {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)"
         print(f"[3] time {kernel:13s} {str(dt)[6:]:8s} {shape}"
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms{lib}  [{card}]")
-    # Bounds at the timed bf16 shapes.  The scans need u, c and gh only on
-    # valid frames (``nv`` of T*B): padding is masked out.
+    # Bounds at the timed shapes.  The scans need u, c and gh only on valid
+    # frames (``nv`` of T*B): padding is masked out.  ``s``: the I/O
+    # dtype's bytes (c, the bias and the bias gradient are f32).
     D, N = 2 * H, 4 * H
+
+    def scans(dt):
+        s = torch.tensor([], dtype=dt).element_size()
+        return {
+            # per valid lane and step: two sigmoids and the cell, ~16 ops
+            "sru_fwd_scan": record(
+                *times[("sru_fwd_scan", dt, None, None)],
+                nv * N * s + N * 4 + B * 4 + M * H * (s + 4), 16 * nv * H,
+                torch.float32),
+            # ~30 f32 ops per valid lane and step
+            "sru_bwd_scan": record(
+                *times[("sru_bwd_scan", dt, None, None)],
+                nv * (N * s + H * 4 + H * s) + N * 4 + B * 4 + M * N * s
+                + B * 2 * H * 4, 30 * nv * H, torch.float32)}
+
+    for kernel, rec in scans(torch.float32).items():
+        print(f"[3] bound {kernel:13s} float32 {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}); kernel {rec['ms']:.4f} ms  [{card}]")
     return {
         "sru_proj_gemm": record(
             *times[("sru_proj_gemm", bf, D, N)], 2 * (M * D + D * N + M * N),
             2 * M * D * N, bf, gemm_library[(D, N)]),
-        # per valid lane and step: two sigmoids and the cell, ~16 f32 ops
-        "sru_fwd_scan": record(
-            *times[("sru_fwd_scan", bf, None, None)],
-            nv * N * 2 + N * 4 + B * 4 + M * H * (2 + 4), 16 * nv * H,
-            torch.float32),
-        # ~30 f32 ops per valid lane and step
-        "sru_bwd_scan": record(
-            *times[("sru_bwd_scan", bf, None, None)],
-            nv * (N * 2 + H * 4 + H * 2) + N * 4 + B * 4 + M * N * 2
-            + B * 2 * H * 4, 30 * nv * H, torch.float32),
-    }
+        **scans(bf)}
 
 
 def phase_lstm_kernels(dev, card, errs):
@@ -842,9 +903,9 @@ def phase_synthesis_kernels(dev, card, errs):
     """Phase 3 at TTS synthesis's shapes: sru_proj_gemm and sru_fwd_scan
     (both directions, relu) in float32 at B=1, for the duration model
     (phone-level, T=64) and the acoustic model (frame-level, T=608), each
-    layer width; each held to its plain version at phase 3's float32 limits
-    and timed beside its plain version, torch.mm for the GEMM (TF32 off)
-    and its bound."""
+    layer width; each held to its plain version at phase 3's float32 limits,
+    and the scan timed beside its plain version and its bound (the GEMM's
+    times at these shapes are phase_f32_gemm's)."""
     from gantts_tpu_torch.kernels import sru_scan as K
 
     f32 = torch.float32
@@ -875,11 +936,7 @@ def phase_synthesis_kernels(dev, card, errs):
                       TOL[f32], errs)
                 check("sru_fwd_scan", f"c:{model}:{way}", f32, D, c_k, c_p,
                       TOL_F32_STATE, errs)
-            M, N = Tn, 4 * H
-            gemm = record(time_ms(lambda: K.sru_proj_gemm(x2, w), 50),
-                          time_ms(lambda: K.sru_proj_gemm_plain(x2, w), 50),
-                          4 * (M * D + D * N + M * N), 2 * M * D * N, f32,
-                          time_ms(lambda: torch.mm(x2, w), 50))
+            N = 4 * H
             # u read on valid frames, h and c written on all of them; ~16
             # f32 operations per valid lane and step
             scan = record(
@@ -889,15 +946,77 @@ def phase_synthesis_kernels(dev, card, errs):
                                                      False, 1), 2, 1),
                 n_valid * N * 4 + N * 4 + 4 + Tn * H * 4 * 2,
                 16 * n_valid * H, f32)
-            print(f"[3] time sru_proj_gemm float32 B=1 {model} M={M} K={D} "
-                  f"N={N}: kernel {gemm['ms']:.4f} ms  plain "
-                  f"{gemm['plain_ms']:.4f} ms  torch.mm "
-                  f"{gemm['library_ms']:.4f} ms  bound "
-                  f"{gemm['bound_ms']:.4f} ms ({gemm['bound_by']})  [{card}]")
             print(f"[3] time sru_fwd_scan  float32 B=1 {model} T={Tn} "
                   f"(length {n_valid}) after K={D}: kernel {scan['ms']:.4f} "
                   f"ms  plain {scan['plain_ms']:.4f} ms  bound "
                   f"{scan['bound_ms']:.4f} ms ({scan['bound_by']})  [{card}]")
+
+
+# Every shape the port's f32 paths give sru_proj_gemm: (path, M, K, N)
+F32_GEMM_SHAPES = (
+    ("tts_acoustic (4g, 10)", T * B, LIN_DIM, 4 * H),
+    ("tts_acoustic (4g, 10)", T * B, 2 * H, 4 * H),
+    ("tts_duration (10)", 3072, PHONE_DIM, 4 * H),
+    ("tts_duration (10)", 3072, 2 * H, 4 * H),
+    ("vc In2OutRNN (8)", T * B, VC_DIM, 4 * H),
+    ("vc In2OutRNN (8)", T * B, H, 4 * H),
+    ("LSTMRNN W_ih", T * B, LIN_DIM, 8 * H),
+    ("LSTMRNN W_ih", T * B, 2 * H, 8 * H),
+    ("TTS synthesis dur (10)", 64, PHONE_DIM, 4 * H),
+    ("TTS synthesis dur (10)", 64, 2 * H, 4 * H),
+    ("TTS synthesis ac (10)", 608, LIN_DIM, 4 * H),
+    ("TTS synthesis ac (10)", 608, 2 * H, 4 * H),
+    ("VC synthesis (9)", 480, VC_DIM, 4 * H),
+    ("VC synthesis (9)", 480, H, 4 * H))
+F32_GEMM_RECORDED = (T * B, 2 * H, 4 * H)  # the kernels line's f32 record
+
+
+def phase_f32_gemm(dev, card, errs):
+    """Phase 3, the f32 GEMM at every shape of F32_GEMM_SHAPES: held to its
+    plain version at TOL, launched twice for identical bits (the split-K
+    sum runs in a fixed order), and timed beside its plain version,
+    torch.mm (f32, TF32 off) and its bound.  The kernel's time is the
+    wrapper's whole call: the split-K workspace and the split sum.  Returns
+    the record at F32_GEMM_RECORDED."""
+    from gantts_tpu_torch.kernels import sru_scan as K
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: torch.mm is no f32 yardstick")
+    f32 = torch.float32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = None
+    for path, M, D, N in F32_GEMM_SHAPES:
+        x2 = torch.randn((M, D), generator=gen, device=dev)
+        w = (torch.rand((D, N), generator=gen, device=dev) * 2 - 1) / H ** 0.5
+        u = K.sru_proj_gemm(x2, w)
+        check("sru_proj_gemm", f"u:M={M}:N={N}", f32, D, u,
+              K.sru_proj_gemm_plain(x2, w), TOL[f32], errs)
+        same = torch.equal(u, K.sru_proj_gemm(x2, w))
+        plan = K._f32_gemm_plan(M, N, D, sms)
+        print(f"[3] sru_proj_gemm float32 M={M} K={D} N={N}: "
+              f"{plan.tile_m}x{plan.tile_n} tiles {plan.tiles_m}x"
+              f"{plan.tiles_n}, {plan.splits} split(s) of "
+              f"{plan.k_steps * K.F32_TILE_K} K; two launches bit-identical:"
+              f" {same}")
+        if not same:
+            fail(f"the f32 GEMM at M={M} K={D} N={N} differs between two "
+                 f"launches")
+        rec = record(time_ms(lambda: K.sru_proj_gemm(x2, w), 20),
+                     time_ms(lambda: K.sru_proj_gemm_plain(x2, w), 20),
+                     4 * (M * D + D * N + M * N), 2 * M * D * N, f32,
+                     time_ms(lambda: torch.mm(x2, w), 20))
+        print(f"[3] time sru_proj_gemm float32 {path:22s} M={M:5d} K={D:4d} "
+              f"N={N}: kernel {rec['ms']:.4f} ms "
+              f"({2 * M * D * N / rec['ms'] / 1e9:.1f} TFLOP/s)  plain "
+              f"{rec['plain_ms']:.4f} ms  torch.mm {rec['library_ms']:.4f} "
+              f"ms ({rec['ms'] / rec['library_ms']:.2f}x)  bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+              f"{rec['bound_ms'] / rec['ms']:.2f} of it)  [{card}]")
+        if (M, D, N) == F32_GEMM_RECORDED:
+            out = dict(M=M, K=D, N=N, **rec)
+    return out
 
 
 def acoustic_hp(compute_dtype, **gen_overrides):
@@ -1037,8 +1156,8 @@ def make_trainer(hp, dev):
 
 def phase_main_path(dev, card, tag, hp, per_step, n_expected, make_batch,
                     unit):
-    """Phase 4 (``tag`` "4" to "4f"): full-width bf16 training
-    steps through the kernels.  ``per_step``: the launches of each kernel
+    """Phase 4 (``tag`` "4" to "4g"): full-width training steps through
+    the kernels, in ``hp.compute_dtype``.  ``per_step``: the launches of each kernel
     that one step must make; ``n_expected``: the parameter counts of the
     generator and the discriminator (None: not checked); ``make_batch(hp,
     dev)``: (x, y, host lengths, R); ``unit``: what one time step of the
@@ -1097,7 +1216,8 @@ def phase_main_path(dev, card, tag, hp, per_step, n_expected, make_batch,
     ms = dt / STEPS * 1e3
     fps = float(lh.sum()) * STEPS / dt
     print(f"[{tag}] {hp.name} {hp.generator} step B={x.shape[0]} "
-          f"T={x.shape[1]} bf16: {ms:.3f} ms/step, {fps:.1f} valid {unit}/s, "
+          f"T={x.shape[1]} {hp.compute_dtype}: {ms:.3f} ms/step, "
+          f"{fps:.1f} valid {unit}/s, "
           f"peak memory {peak} bytes ({peak / 2**30:.3f} GiB)  [{card}]")
 
     def run_steps(n):
@@ -2257,6 +2377,7 @@ def main():
     recs.update(phase_linear_kernels(dev, card, errs))
     phase_vc_lstm_kernels(dev, card, errs)
     phase_synthesis_kernels(dev, card, errs)
+    recs["sru_proj_gemm"]["f32"] = phase_f32_gemm(dev, card, errs)
     none = {k: 0 for k in KERNELS}
     vc_disc = mlp_param_count([VC_STATIC, 256, 256, 1])
     paths = [("4", acoustic_hp("bfloat16"),
@@ -2282,7 +2403,11 @@ def main():
               vc_batch, "frames"),
              ("4f", vc_hp("bfloat16", "In2OutHighwayNet"), none,
               (in2out_param_count("In2OutHighwayNet"), vc_disc), vc_batch,
-              "frames")]
+              "frames"),
+             ("4g", acoustic_hp("float32"),
+              dict(none, sru_proj_gemm=12, sru_fwd_scan=12, sru_bwd_scan=12),
+              (sru_param_count(LIN_DIM, H, 6, OUT_DIM, True), None),
+              acoustic_batch, "frames")]
     launches = dict(none)
     for tag, hp, per_step, n_expected, make_batch, unit in paths:
         with plain_versions_forbidden():

@@ -11,12 +11,17 @@
 //                  shared-memory stages, two consumer warpgroups issuing
 //                  wgmma m64n256k16 on a 128x256 block tile, persistent
 //                  blocks.  f32 I/O stays off the tensor cores (TF32 would
-//                  lose the exactness the f32 path promises) and uses a
-//                  shared-memory-tiled FMA kernel (64x64 tile, 4x4 outputs
-//                  per thread).  Rounding: the tensor cores sum the K
-//                  products in f32 in their own order; each output is
-//                  rounded once to bf16 (nearest even), as the plain
-//                  version's f32-output matmul followed by a cast.
+//                  lose the exactness the f32 path promises): an FMA kernel
+//                  on 128x256 (128x128, 64x128) tiles of 8x16 (8x8, 4x8)
+//                  outputs a thread, fed by a 3-stage cp.async ring (x
+//                  transposed to k-major on its way in), with K split
+//                  across blocks where the tiles alone leave SMs idle (see
+//                  "u = x @ W, f32" below), 43 GFLOP at 0.64 ms on the
+//                  card's 67 TFLOP/s of f32 FMAs.  Rounding in bf16: the
+//                  tensor cores sum the K products in f32 in their own
+//                  order; each output is rounded once to bf16 (nearest
+//                  even), as the plain version's f32-output matmul followed
+//                  by a cast.
 //
 //   sru_fwd_scan   the scan half of `_psru_fwd_kernel` and all of
 //                  `_fused_fwd_kernel`: bias add, gates, length mask, the
@@ -51,62 +56,313 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
 // ---------------------------------------------------------------------------
-// u = x @ W, f32
+// u = x @ W, f32: FMA pipes fed by a cp.async ring
+//
+// What bounds it: the FMA pipes (67 TFLOP/s), since TF32 or 3xTF32 on the
+// tensor cores would not keep the exact f32 products this path promises.
+// 64x64 tiles of 4x4 outputs a thread read 8 scalar shared-memory words for
+// every 16 FMAs and so were bound by shared-memory issue (14-22 TFLOP/s at
+// M >= 608).  Here the shared-memory and copy instructions a FMA are cut by
+// tiles of 8x8 or 8x16 outputs a thread read as 16-byte vectors:
+//
+//   * A block of 256 threads owns a BM x BN tile of C (F32Tile): its 8 warps
+//     a 4 x 2 grid of warp tiles of 4 RM rows x 8 CN columns, a warp's lanes
+//     a 4 x 8 grid (ly, lx).  A thread holds RM rows, 4 ly + r + 16 s (r < 4,
+//     s < RM / 4), and CN columns, 4 lx + c + 32 t (c < 4, t < CN / 4), of its
+//     warp tile in registers.  Three tiles (the wrapper's plan picks):
+//     128 x 256 (8 x 16 a thread, 255 registers, one block an SM) for the
+//     training steps' M, 128 x 128 (8 x 8, two blocks an SM) where there are
+//     too few of those to fill the SMs several times, 64 x 128 (4 x 8) for
+//     M <= 64.
+//   * K in steps of kFBK = 32 through a ring of kFStages = 3 shared-memory
+//     stages filled by cp.async (zero-filling what lies past M, N or K), two
+//     stages in flight ahead of the products and one __syncthreads a stage.
+//     (16 k and 4 stages, 32 and 2 or 4, and 64 and 2 all measured slower:
+//     PERF.md, tools/torch_gemm_f32_ab.py --variants.)
+//   * Both operands lie k-major in a stage, so that a thread reads its RM
+//     rows of x and its CN columns of W at one k as float4s: RM / 4 + CN / 4
+//     LDS.128 for RM CN FMAs (6 for 128 at 8 x 16), and each LDS.128 of a
+//     warp touches 4 (x) or 8 (W) consecutive float4s: one wavefront, no
+//     bank conflict.  The stage's k are unrolled, so ptxas issues the next
+//     k's loads under the current FMAs (the register double buffer).
+//   * W (K x N) is N-contiguous and lies as it does in memory (32 x BN),
+//     copied in 16-byte pieces: N % 4 == 0 and 16-byte bases (the wrapper
+//     pads an N that is not a multiple of 4).  x (M x K) is K-contiguous, so
+//     its tile is transposed on its way in, with no registers involved: each
+//     thread issues 4-byte cp.async, a warp copying 8 k of 4 rows (4 sectors
+//     of 32 bytes in, and k rows BM + 4 floats apart in the stage, so that
+//     the 32 words land in 32 distinct banks).  x needs no alignment beyond
+//     its floats' and no padding of a ragged K (425, 177): the wrapper copies
+//     nothing.
+//   * Small M fills few SMs (16 tiles at M = 64, N = 2048, for 132 SMs), so
+//     K is split across ``gridDim.z`` blocks of ``kps`` k-steps each, as the
+//     wrapper's plan says.  Split z writes its partial tile to its own
+//     M x N slice of a workspace; a second kernel adds the slices in order
+//     of z.  The sum never depends on timing: two launches are
+//     bit-identical.
+//   * Rounding: each output is a chain of fmaf over its k in order (within
+//     a split; the splits then added in order), with no other rounding.
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = 64;
+constexpr int kFBK = 32, kFStages = 3;
 
-// 256 threads as a 16x16 grid, each owning a 4x4 block of C.  Rows and
-// columns of a thread's block are strided by 16 so that a warp reads
-// consecutive shared-memory words.
-constexpr int kSimtK = 16;
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-__global__ void __launch_bounds__(256)
+// A tile shape: RM x CN outputs a thread, a WM x WN grid of warps, each
+// warp's lanes a 4 x 8 grid.  The block tile is BM x BN.
+template <int RM_, int CN_, int WM_, int WN_>
+struct F32Tile {
+  static constexpr int RM = RM_, CN = CN_, WM = WM_, WN = WN_;
+  static constexpr int kThreads = 32 * WM * WN;
+  static constexpr int BM = WM * 4 * RM, BN = WN * 8 * CN;
+  // floats between the k rows of x's stage: BM + 4, so that a warp's 4-byte
+  // copies (8 k of 4 rows) land in 32 distinct banks
+  static constexpr int kLdA = BM + 4;
+  static constexpr int kAStage = kFBK * kLdA, kBStage = kFBK * BN;
+  static constexpr int kSmem = kFStages * (kAStage + kBStage) * 4;
+  // blocks an SM that the registers allow (RM * CN accumulators a thread):
+  // one at 128, else two, at most 128 registers a thread (at three, 85, the
+  // 4 x 8 tile spills)
+  static constexpr int kMinBlocks = RM * CN >= 128 ? 1 : 2;
+};
+
+// C (or split z's slice of the workspace) = x[:, kb:ke] @ W[kb:ke], with
+// kb = z * kps * kFBK and ke = min(K, kb + kps * kFBK); x's rows lie ldx
+// floats apart.
+template <typename S>
+__global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
 proj_gemm_f32(const float* __restrict__ A, const float* __restrict__ Bm,
-              float* __restrict__ C, int M, int N, int K) {
-  __shared__ float As[kSimtK][kTile + 4];
-  __shared__ float Bs[kSimtK][kTile + 4];
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kSimtK) {
-    for (int i = tid; i < kTile * kSimtK; i += 256) {
-      const int m = i / kSimtK, k = i % kSimtK;
-      const int gm = m0 + m, gk = k0 + k;
-      As[k][m] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
+              float* __restrict__ C, int M, int N, int K, int ldx, int kps) {
+  constexpr int RM = S::RM, CN = S::CN, BN = S::BN, kLdA = S::kLdA;
+  // x's copies: warps in kFBK / 8 groups, one per 8 k; each copy of a warp
+  // takes 8 k of 4 rows, and copy q of a group row 4 (warps of the group) q
+  // further
+  constexpr int KG = kFBK / 8, RS = 4 * S::WM * S::WN / KG;
+  static_assert(kFBK % 8 == 0 && (S::WM * S::WN) % KG == 0 && S::BM % RS == 0,
+                "x's copies do not tile the stage");
+  extern __shared__ float4 fsmem4[];
+  float* const As = reinterpret_cast<float*>(fsmem4);
+  float* const Bs = As + kFStages * S::kAStage;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * S::BM;
+  const int kb = blockIdx.z * kps * kFBK;
+  const int ke = min(K, kb + kps * kFBK);
+  const int nk = ke > kb ? (ke - kb + kFBK - 1) / kFBK : 0;
+  C += (size_t)blockIdx.z * M * N;
+
+  // x's copies: copy q of warp w takes k = 8 (w % KG) + lane % 8 of row
+  // RS q + 4 (w / KG) + lane / 8; W's: copy q takes the 16 bytes
+  // c = tid + kThreads q of the stage, k = c / (BN / 4), columns
+  // 4 (c % (BN / 4)) .. + 3.
+  const int ak = 8 * (warp % KG) + lane % 8;
+  const int am = 4 * (warp / KG) + lane / 8;
+  auto load_stage = [&](int kt, int slot) {
+    const int k0 = kb + kt * kFBK;
+    float* as = As + slot * S::kAStage + ak * kLdA + am;
+    float* bs = Bs + slot * S::kBStage;
+    const bool kin = k0 + ak < K;
+#pragma unroll
+    for (int q = 0; q < S::BM / RS; ++q) {
+      const int m = m0 + am + RS * q;
+      const bool in = kin && m < M;
+      cp_async4(smem_u32(as + RS * q),
+                in ? A + (size_t)m * ldx + k0 + ak : A, in ? 4 : 0);
     }
-    for (int i = tid; i < kTile * kSimtK; i += 256) {
-      const int k = i / kTile, n = i % kTile;
-      const int gk = k0 + k, gn = n0 + n;
-      Bs[k][n] = (gk < K && gn < N) ? Bm[(size_t)gk * N + gn] : 0.f;
+#pragma unroll
+    for (int q = 0; q < S::kBStage / 4 / S::kThreads; ++q) {
+      const int c = tid + q * S::kThreads, k = k0 + c / (BN / 4);
+      const int n = n0 + (c % (BN / 4)) * 4;
+      const bool in = k < K && n < N;
+      cp_async16(smem_u32(bs + 4 * c), in ? Bm + (size_t)k * N + n : Bm,
+                 in ? 16 : 0);
     }
-    __syncthreads();
+  };
+
+  const int ly = lane / 8, lx = lane % 8;
+  const int wrow = (warp / S::WN) * 4 * RM + 4 * ly;  // first row in the tile
+  const int wcol = (warp % S::WN) * 8 * CN + 4 * lx;  // first column
+  float acc[RM][CN];
 #pragma unroll
-    for (int k = 0; k < kSimtK; ++k) {
-      float a[4], b[4];
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
+    for (int j = 0; j < CN; ++j) acc[i][j] = 0.f;
+
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int st = 0; st < kFStages - 1; ++st) {
+    if (st < nk) load_stage(st, st);
+    cp_async_commit();
   }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kFStages - 2>();  // this thread's copies of stage kt
+    // Everyone's copies of stage kt have landed, and everyone is done
+    // reading stage kt - 1, whose slot the next load refills.
+    __syncthreads();
+    if (kt + kFStages - 1 < nk)
+      load_stage(kt + kFStages - 1, (kt + kFStages - 1) % kFStages);
+    cp_async_commit();
+    const float* as = As + (kt % kFStages) * S::kAStage + wrow;
+    const float* bs = Bs + (kt % kFStages) * S::kBStage + wcol;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
+    for (int k = 0; k < kFBK; ++k) {
+      float a[RM], b[CN];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < N) C[(size_t)gm * N + gn] = acc[i][j];
+      for (int s = 0; s < RM / 4; ++s) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(as + k * kLdA + 16 * s);
+        a[4 * s] = v.x;
+        a[4 * s + 1] = v.y;
+        a[4 * s + 2] = v.z;
+        a[4 * s + 3] = v.w;
+      }
+#pragma unroll
+      for (int t = 0; t < CN / 4; ++t) {
+        const float4 v = *reinterpret_cast<const float4*>(bs + k * BN + 32 * t);
+        b[4 * t] = v.x;
+        b[4 * t + 1] = v.y;
+        b[4 * t + 2] = v.z;
+        b[4 * t + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
   }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int m = m0 + wrow + (i % 4) + 16 * (i / 4);
+    if (m >= M) continue;
+#pragma unroll
+    for (int t = 0; t < CN / 4; ++t) {
+      const int n = n0 + wcol + 32 * t;
+      if (n < N)
+        *reinterpret_cast<float4*>(C + (size_t)m * N + n) =
+            make_float4(acc[i][4 * t], acc[i][4 * t + 1], acc[i][4 * t + 2],
+                        acc[i][4 * t + 3]);
+    }
+  }
+}
+
+// u = the splits' slices of ws added in order of split: n4 float4 a slice.
+__global__ void __launch_bounds__(256)
+proj_gemm_f32_split_sum(const float4* __restrict__ ws, float4* __restrict__ u,
+                        size_t n4, int splits) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float4 s = ws[i];
+    for (int z = 1; z < splits; ++z) {
+      const float4 v = ws[z * n4 + i];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    u[i] = s;
+  }
+}
+
+// The f32 GEMM's tile shapes, by (tile_m, tile_n), 256 threads each.
+using F32Small = F32Tile<4, 8, 4, 2>;   // 64 x 128, 2 blocks an SM
+using F32Wide = F32Tile<8, 8, 4, 2>;    // 128 x 128, 2 blocks an SM
+using F32Wider = F32Tile<8, 16, 4, 2>;  // 128 x 256, 1 block an SM
+
+template <typename S>
+cudaError_t f32_gemm_opt_in() {
+  return cudaFuncSetAttribute(proj_gemm_f32<S>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              S::kSmem);
+}
+
+// The SM count of the current device, and each f32 GEMM instance's
+// shared-memory opt-in, once per device.
+cudaError_t f32_gemm_setup(int* sms) {
+  static int sms_of[64];
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && sms_of[dev] != 0) {
+    *sms = sms_of[dev];
+    return cudaSuccess;
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = f32_gemm_opt_in<F32Small>();
+  if (e == cudaSuccess) e = f32_gemm_opt_in<F32Wide>();
+  if (e == cudaSuccess) e = f32_gemm_opt_in<F32Wider>();
+  if (e == cudaSuccess && dev < 64) sms_of[dev] = *sms;
+  return e;
+}
+
+template <typename S>
+void launch_f32_tile(const float* x, const float* w, float* out, int M, int N,
+                     int K, int ldx, int splits, int kps, cudaStream_t s) {
+  const dim3 grid((unsigned)((N + S::BN - 1) / S::BN),
+                  (unsigned)((M + S::BM - 1) / S::BM), (unsigned)splits);
+  proj_gemm_f32<S><<<grid, S::kThreads, S::kSmem, s>>>(x, w, out, M, N, K,
+                                                       ldx, kps);
+}
+
+// The plan (tile shape, splits, kps) comes from the wrapper: splits blocks
+// along K, kps k-steps of kFBK each, every split non-empty; ws holds
+// splits * M * N floats when splits > 1.
+cudaError_t launch_proj_gemm_f32(const float* x, const float* w, float* u,
+                                 float* ws, int M, int N, int K, int ldx,
+                                 int tile_m, int tile_n, int splits,
+                                 int kps, cudaStream_t s) {
+  const long long span = (long long)kps * kFBK;
+  if (ldx < K || N % 4 != 0 || (uintptr_t)x % 4 != 0 ||
+      (uintptr_t)w % 16 != 0 || (uintptr_t)u % 16 != 0 || splits < 1 ||
+      kps < 0 || span * splits < K ||
+      (splits > 1 && (span * (splits - 1) >= K || ws == nullptr ||
+                      (uintptr_t)ws % 16 != 0)))
+    return cudaErrorInvalidValue;
+  void (*launch)(const float*, const float*, float*, int, int, int, int, int,
+                 int, cudaStream_t) = nullptr;
+#define F32_TILE(S) \
+  if (tile_m == S::BM && tile_n == S::BN) launch = launch_f32_tile<S>;
+  F32_TILE(F32Small)
+  F32_TILE(F32Wide)
+  F32_TILE(F32Wider)
+#undef F32_TILE
+  if (launch == nullptr) return cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return cudaSuccess;
+  int sms;
+  cudaError_t e = f32_gemm_setup(&sms);
+  if (e != cudaSuccess) return e;
+  launch(x, w, splits > 1 ? ws : u, M, N, K, ldx, splits, kps, s);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  const size_t n4 = (size_t)M * N / 4;
+  const size_t blocks = (n4 + 255) / 256;
+  proj_gemm_f32_split_sum<<<(unsigned)(blocks < (size_t)sms * 8 ? blocks
+                                                                : sms * 8),
+                            256, 0, s>>>((const float4*)ws, (float4*)u, n4,
+                                         splits);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -150,10 +406,6 @@ constexpr int kATileBytes = kGBM * kGBK * 2;   // 16 KB
 constexpr int kBBoxBytes = kGBK * 64 * 2;      // one 64x64 box of W, 8 KB
 constexpr int kStageBytes = kATileBytes + 4 * kBBoxBytes;
 constexpr int kGemmSmem = kStages * kStageBytes + 1024;  // + alignment slack
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
@@ -998,17 +1250,21 @@ const char* sru_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// x: (M, K) with rows ldx elements apart (bf16; f32 takes ldx == K).
-int sru_proj_gemm(const void* x, const void* w, void* u, int M, int N, int K,
-                  int ldx, int bf16, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) return (int)launch_proj_gemm_bf16(x, w, u, M, N, K, ldx, s);
-  if (ldx != K) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((N + kTile - 1) / kTile),
-                  (unsigned)((M + kTile - 1) / kTile));
-  proj_gemm_f32<<<grid, 256, 0, s>>>((const float*)x, (const float*)w,
-                                     (float*)u, M, N, K);
-  return (int)cudaGetLastError();
+// x: (M, K) bf16 with rows ldx elements apart.
+int sru_proj_gemm_bf16(const void* x, const void* w, void* u, int M, int N,
+                       int K, int ldx, void* stream) {
+  return (int)launch_proj_gemm_bf16(x, w, u, M, N, K, ldx,
+                                    (cudaStream_t)stream);
+}
+
+// x: (M, K) f32 with rows ldx elements apart; the plan (tile_m, tile_n,
+// splits, kps) and the workspace ws (splits * M * N floats when
+// splits > 1) come from the caller.
+int sru_proj_gemm_f32(const float* x, const float* w, float* u, float* ws,
+                      int M, int N, int K, int ldx, int tile_m, int tile_n,
+                      int splits, int kps, void* stream) {
+  return (int)launch_proj_gemm_f32(x, w, u, ws, M, N, K, ldx, tile_m, tile_n,
+                                   splits, kps, (cudaStream_t)stream);
 }
 
 int sru_fwd_scan(const void* u, const float* bias4, const int* lengths,

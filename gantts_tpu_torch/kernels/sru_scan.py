@@ -7,7 +7,9 @@ on the card, what its design does about it, and how it rounds):
 
   ``sru_proj_gemm``  u = x @ W, f32 accumulation, u in the I/O dtype
                      (replaces ``_proj_u`` of ``_psru_fwd_kernel``).  bf16 is
-                     a wgmma kernel fed by TMA; f32 a tiled FMA kernel;
+                     a wgmma kernel fed by TMA; f32 an FMA kernel fed by a
+                     cp.async ring, with K split across blocks as
+                     ``_f32_gemm_plan`` says;
   ``sru_fwd_scan``   gates, length mask, recurrence and highway output from u
                      (replaces the scan of ``_psru_fwd_kernel`` and all of
                      ``_fused_fwd_kernel``);
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -142,6 +145,71 @@ def sru_bwd_scan_plain(u, bias4, lengths, c, gh, reverse, use_relu):
 
 
 # ---------------------------------------------------------------------------
+# The f32 GEMM's plan
+# ---------------------------------------------------------------------------
+
+F32_TILE_K = 32  # the kernel's kFBK: k a pipeline stage
+# The kernel's tiles, (tile_m, tile_n) -> blocks resident on an SM
+F32_TILES = {(128, 256): 1, (128, 128): 2, (64, 128): 2}
+F32_WAVES = 4          # 128x256 tiles only when they fill the SMs 4 times
+F32_MIN_SPLIT_K = 64   # K a split takes at least: two stages
+
+
+class GemmPlan(NamedTuple):
+    """How the f32 kernel cuts (M, K) x (K, N): tiles of tile_m x tile_n
+    outputs, each computed by ``splits`` blocks, split z over k in
+    ``k_ranges[z]`` (``k_steps`` steps of F32_TILE_K each, the last one
+    shorter); the splits' partial tiles go to ``workspace`` floats (splits x
+    M x N, none unsplit) and are added in order of z."""
+    tile_m: int
+    tile_n: int
+    tiles_m: int
+    tiles_n: int
+    splits: int
+    k_steps: int
+    k_ranges: tuple
+    workspace: int
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _f32_gemm_plan(M, N, K, sm_count):
+    """The tile and split-K choice of the f32 kernel, for ``sm_count`` SMs.
+
+    128 x 256 tiles (8 x 16 outputs a thread, one block an SM) where they
+    fill the SMs F32_WAVES times or more, so that the last wave's idle SMs
+    cost little; else 128 x 128 (two blocks an SM), or 64 x 128 (two) when
+    M <= 64.  K is split only when those tiles are fewer than the
+    SMs: into as many splits as fill the SMs with resident blocks, each of
+    at least F32_MIN_SPLIT_K of K, then evened out so that every split is
+    non-empty."""
+    tile_m, tile_n = 128, 256
+    if _cdiv(M, tile_m) * _cdiv(N, tile_n) < F32_WAVES * sm_count:
+        tile_m, tile_n = (64 if M <= 64 else 128), 128
+    tiles_m, tiles_n = _cdiv(M, tile_m), _cdiv(N, tile_n)
+    tiles = tiles_m * tiles_n
+    nk = _cdiv(K, F32_TILE_K)
+    want = 1
+    if 0 < tiles < sm_count:
+        want = max(1, min(F32_TILES[tile_m, tile_n] * sm_count // tiles,
+                          K // F32_MIN_SPLIT_K))
+    k_steps = _cdiv(nk, want)
+    splits = _cdiv(nk, k_steps) if k_steps else 1
+    span = k_steps * F32_TILE_K
+    k_ranges = tuple((z * span, min(K, (z + 1) * span))
+                     for z in range(splits))
+    return GemmPlan(tile_m, tile_n, tiles_m, tiles_n, splits, k_steps,
+                    k_ranges, splits * M * N if splits > 1 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -154,11 +222,13 @@ def _lib():
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.sru_error_string.argtypes = [I]
     lib.sru_error_string.restype = ctypes.c_char_p
-    lib.sru_proj_gemm.argtypes = [P, P, P, I, I, I, I, I, P]
+    lib.sru_proj_gemm_bf16.argtypes = [P, P, P, I, I, I, I, P]
+    lib.sru_proj_gemm_f32.argtypes = [P, P, P, P] + [I] * 8 + [P]
     lib.sru_fwd_scan.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
     lib.sru_bwd_scan.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                                  P]
-    for fn in (lib.sru_proj_gemm, lib.sru_fwd_scan, lib.sru_bwd_scan):
+    for fn in (lib.sru_proj_gemm_bf16, lib.sru_proj_gemm_f32,
+               lib.sru_fwd_scan, lib.sru_bwd_scan):
         fn.restype = I
     return lib
 
@@ -193,12 +263,15 @@ def _stream(device):
 def sru_proj_gemm(x2, w):
     """u = x2 @ w: (M, K) x (K, N) -> (M, N) in x2's dtype, f32 accumulation.
 
-    The bf16 kernel reads both operands with TMA, which takes row strides
-    and bases in multiples of 16 bytes and reads what lies past an edge as
-    zero.  A K that is not a multiple of 8 (the first layer's 425) makes
-    only x's rows too narrow: x is copied into rows 8-aligned apart and w
-    read as it is.  An N that is not a multiple of 8, or a misaligned w, is
-    zero-padded into a fresh w, and u sliced back to N columns."""
+    Both kernels read w's rows in 16-byte pieces (TMA in bf16, cp.async in
+    f32), which takes a row stride and a base in multiples of 16 bytes: an
+    N that is not a multiple of 8 (bf16) or 4 (f32), or a misaligned w, is
+    zero-padded into a fresh w, and u sliced back to N columns.  The bf16
+    kernel reads x the same way, so a K that is not a multiple of 8 (the
+    first layer's 425) or a misaligned x makes x be copied into rows
+    8-aligned apart; the f32 kernel copies x 4 bytes at a time and takes it
+    as it is.  The f32 kernel follows ``_f32_gemm_plan`` and gets its
+    split-K workspace from here."""
     if _on_cpu(x2, w):
         return sru_proj_gemm_plain(x2, w)
     name, dev = "sru_proj_gemm", x2.device
@@ -206,18 +279,29 @@ def sru_proj_gemm(x2, w):
     N = w.shape[1]
     _require(name, x2, "x", dev, IO_DTYPES, (M, K))
     _require(name, w, "w", dev, (x2.dtype,), (K, N))
-    Np, ldx = N, K
-    if x2.dtype == torch.bfloat16:
-        Np, ldx = N + -N % 8, K + -K % 8
-        if ldx != K or x2.data_ptr() % 16:
-            xp = torch.empty((M, ldx), dtype=x2.dtype, device=dev)
-            x2 = xp[:, :K].copy_(x2)  # its row stride is ldx
-        if Np != N or w.data_ptr() % 16:
-            w = F.pad(w, (0, Np - N))
+    bf16 = x2.dtype == torch.bfloat16
+    Np, ldx = N + -N % (8 if bf16 else 4), K
+    if bf16 and (K % 8 or x2.data_ptr() % 16):
+        ldx = K + -K % 8
+        xp = torch.empty((M, ldx), dtype=x2.dtype, device=dev)
+        x2 = xp[:, :K].copy_(x2)  # its row stride is ldx
+    if Np != N or w.data_ptr() % 16:
+        w = F.pad(w, (0, Np - N))
     u = torch.empty((M, Np), dtype=x2.dtype, device=dev)
-    _launched(name, _lib().sru_proj_gemm(
-        x2.data_ptr(), w.data_ptr(), u.data_ptr(), M, Np, K, ldx,
-        int(x2.dtype == torch.bfloat16), _stream(dev)))
+    if bf16:
+        code = _lib().sru_proj_gemm_bf16(
+            x2.data_ptr(), w.data_ptr(), u.data_ptr(), M, Np, K, ldx,
+            _stream(dev))
+    else:
+        plan = _f32_gemm_plan(M, Np, K, _sm_count(dev.index))
+        ws = (torch.empty(plan.workspace, dtype=torch.float32, device=dev)
+              if plan.splits > 1 else None)
+        code = _lib().sru_proj_gemm_f32(
+            x2.data_ptr(), w.data_ptr(), u.data_ptr(),
+            None if ws is None else ws.data_ptr(), M, Np, K, ldx,
+            plan.tile_m, plan.tile_n, plan.splits, plan.k_steps,
+            _stream(dev))
+    _launched(name, code)
     return u if Np == N else u[:, :N].contiguous()
 
 

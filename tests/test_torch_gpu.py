@@ -147,6 +147,59 @@ def test_proj_gemm_pads_what_its_loads_cannot_take(cuda, K_, N_, M):
         assert _rel(u, K.sru_proj_gemm_plain(x2, w)) < TOL[torch.bfloat16]
 
 
+def _f32_operands(dev, M, K_, N_, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x2 = torch.randn((M, K_), generator=gen, device=dev)
+    w = (torch.rand((K_, N_), generator=gen, device=dev) * 2 - 1) / 512 ** .5
+    return x2, w
+
+
+@pytest.mark.parametrize("N_", [5, 187, 2048, 4096])
+@pytest.mark.parametrize("K_", [1, 3, 177, 425, 1024])
+@pytest.mark.parametrize("M", [1, 63, 65, 608, 10240])
+def test_f32_gemm_at_edge_shapes(cuda, M, K_, N_):
+    """f32 GEMM: one launch of the kernel (64- or 128-row tiles, split K
+    where the plan says) for any M, K and N: ragged M against both tile
+    heights, K under one 16-step stage or not a multiple of 4 (x read as it
+    lies, 4 bytes a copy), N not a multiple of 4 (w padded, u sliced
+    back)."""
+    x2, w = _f32_operands(cuda, M, K_, N_, M * 7 + K_ * 3 + N_)
+    K.reset_launch_counts()
+    u = K.sru_proj_gemm(x2, w)
+    torch.cuda.synchronize()
+    assert K.launch_counts["sru_proj_gemm"] == 1
+    assert u.shape == (M, N_) and u.is_contiguous()
+    assert torch.isfinite(u).all()
+    assert _rel(u, K.sru_proj_gemm_plain(x2, w)) < TOL[torch.float32]
+
+
+@pytest.mark.parametrize("M,K_", [(608, 1024), (65, 425), (10240, 177)])
+def test_f32_gemm_takes_a_misaligned_view(cuda, M, K_):
+    """An x that starts one element into its storage is read as it lies
+    (the f32 kernel copies x 4 bytes at a time)."""
+    x2, w = _f32_operands(cuda, M, K_ + 1, 2048, M)
+    x2 = x2.reshape(-1)[1:M * K_ + 1].view(M, K_)
+    w = w[:K_].contiguous()
+    assert x2.data_ptr() % 16
+    assert _rel(K.sru_proj_gemm(x2, w),
+                K.sru_proj_gemm_plain(x2, w)) < TOL[torch.float32]
+
+
+@pytest.mark.parametrize("M,K_,N_", [(64, 1024, 2048), (608, 425, 2048),
+                                     (480, 177, 2048), (1, 1024, 4096)])
+def test_f32_gemm_split_k_is_bit_identical(cuda, M, K_, N_):
+    """At shapes the plan splits over K, two launches give the same bits:
+    the splits' partial tiles are added in a fixed order."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert K._f32_gemm_plan(M, N_, K_, sms).splits > 1
+    x2, w = _f32_operands(cuda, M, K_, N_, 11)
+    u1 = K.sru_proj_gemm(x2, w)
+    u2 = K.sru_proj_gemm(x2, w)
+    assert torch.equal(u1, u2)
+    assert _rel(u1, K.sru_proj_gemm_plain(x2, w)) < TOL[torch.float32]
+
+
 def _bwd_inputs(dev, dt, Tn, Bn, Hn, seed=6):
     """u, bias4, c (from the plain forward) and gh; lengths [1, T, then
     values that end inside a 4-step run and a 64-step window]."""
