@@ -12,8 +12,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      per source, all started together, and check with cuobjdump that the
      bf16 GEMM's SASS holds wgmma (HGMMA) and TMA loads (UTMALDG), and
      that each instance of the f32 GEMM holds FFMA and vector shared-memory
-     loads (LDS.64/128) and no local-memory traffic (LDL/STL, a spill) and
-     no tensor-core instruction (HMMA/HGMMA);
+     loads (LDS.64/128), and each f32 LSTM kernel (the flag design's and
+     the cooperative one's) FFMA, and that none of these f32 kernels holds
+     local-memory traffic (LDL/STL, a spill) or a tensor-core instruction
+     (HMMA/HGMMA);
   3. hold each kernel against its plain PyTorch version at the training
      steps' shapes (T=512, B=20, H=512, D in {425, 1024}, float32 and
      bfloat16; the SRU kernels in both directions with relu, the LSTM
@@ -22,7 +24,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      lengths; the bf16 GEMM also at the LSTM path's N = 8H; the SRU
      kernels also at (4d)'s shapes, B=32, T=96, D in {416, 1024}; the
      one-direction LSTM kernels and the GEMM also at the VC path's shapes,
-     D in {177, 512}, in float32 (the cooperative kernels) and bfloat16;
+     D in {177, 512}, in float32 (the flag design) and bfloat16, and the
+     f32 LSTM kernels at phase 9's B=1 and phase 8's batches padded with
+     zero-length rows, every LSTM check launched twice for identical bits;
      the SRU GEMM and forward scan also at TTS synthesis's shapes, float32
      at B=1, T=64 with D in {416, 1024} and T=608 with D in {425, 1024};
      the f32 GEMM at every shape the f32 paths give it, F32_GEMM_SHAPES,
@@ -30,10 +34,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      with TF32 off), and time both,
      beside the library call that computes the same function where there
      is one (cuBLAS for the GEMM, at every (K, N) the main paths give it; a
-     cuDNN bidirectional LSTM layer for the LSTM scans); the LSTM
-     kernels' launches print the design they took (bf16 must take the
-     thread-block-cluster kernels, f32 the cooperative ones), beside how
-     many of each kernel's clusters can be resident at once;
+     cuDNN LSTM layer for the LSTM scans, and the port's f32 layer broken
+     down by kernel); the LSTM kernels' launches print the design they took
+     (bf16 must take the thread-block-cluster kernels, f32 the flag
+     design), beside how many of each kernel's clusters can be resident at
+     once;
   4. the main paths, each with its launch counters set to 0 just before
      and checked just after, and every plain version refused while it
      runs: full-width tts_acoustic GAN training steps (MLP discriminator,
@@ -50,12 +55,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      unidirectional LSTM, and (4f) the bundle's In2OutHighwayNet, whose MLP
      trunk launches none of the kernels; (4g) the shipped tts_acoustic
      step in the bundle's own float32: (4)'s 6x512 bidirectional SRU, the
-     f32 kernels (sru_proj_gemm's FMA kernel, 12 launches a step);
+     f32 kernels (sru_proj_gemm's FMA kernel, 12 launches a step); (4h)
+     the vc step of (4e) in the bundle's own float32: the f32 GEMM and the
+     flag design's LSTM scans, 3 + 3 + 3 launches a step;
   5. one small float32 step on the card against the same step on the CPU
      (where every kernel wrapper takes its plain version), same weights,
      and the same step on the card with TF32 matmuls as a control that the
      comparison's limit must catch: (5) with an SRU generator, (5b) with an
-     LSTMRNN, (5c) with a unidirectional SRU, (5d) with the tts_duration
+     LSTMRNN, (5c) with a unidirectional SRU (5-5c with V/UV denormalized
+     around 2, so that the F0 error is a number), (5d) with the tts_duration
      bundle (Adam, no MLPG matrix), (5e) with the vc bundle and an
      In2OutRNNHighwayNet (MLPG inside the generator);
   6. the port's training command line (gantts_tpu_torch.train) on a
@@ -87,7 +95,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      utterance takes, and the first utterance's predictions of both models
      against CPU copies of the generators.
 
-Each of (4) to (4g) ends with a torch.profiler trace of a few more
+Each of (4) to (4h) ends with a torch.profiler trace of a few more
 of its steps, which prints where the device time goes and the idle share
 the trace measured (nothing is written to disk).
 
@@ -322,19 +330,27 @@ SASS_RULES = {
                       {"LDL/STL": r"\b(LDL|STL)\b",
                        "HMMA/HGMMA": r"\bH(G)?MMA\b"}),
 }
+# The f32 LSTM kernels (both designs' f32 instances): exact f32 FMAs, no
+# tensor cores, no spills
+_F32_FMA_ONLY = ({"FFMA": r"\bFFMA\b"},
+                 {"LDL/STL": r"\b(LDL|STL)\b", "HMMA/HGMMA": r"\bH(G)?MMA\b"})
+LSTM_SASS_RULES = {name: _F32_FMA_ONLY for name in (
+    "lstm_fwd_flag_kernel", "lstm_bwd_flag_kernel", "lstm_fwd_kernelIf",
+    "lstm_bwd_kernelIf")}
 
 
-def sass_counts(text):
-    """Counts of SASS_RULES' patterns in each GEMM instance of cuobjdump's
-    output ``text``, by its mangled name (the f32 kernel's split sum is not
-    a GEMM and is left out)."""
+def sass_counts(text, table=SASS_RULES):
+    """Counts of ``table``'s patterns (SASS_RULES: each GEMM instance) in
+    each function of cuobjdump's output ``text`` that ``table`` names, by
+    its mangled name (the f32 GEMM's split sum is not a GEMM and is left
+    out)."""
     import re
 
     out, rules = {}, None
     for line in text.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            rules = next((r for k, r in SASS_RULES.items()
+            rules = next((r for k, r in table.items()
                           if k in name and "split_sum" not in name), None)
             if rules is not None:
                 out[name] = dict.fromkeys(list(rules[0]) + list(rules[1]), 0)
@@ -344,12 +360,13 @@ def sass_counts(text):
     return out
 
 
-def check_gemm_sass(lib_path):
-    """Phase 2: each GEMM's SASS, from cuobjdump, must hold what its design
-    rests on and nothing it must avoid (SASS_RULES): the bf16 kernel wgmma
-    (HGMMA) and TMA loads (UTMALDG); each instance of the f32 kernel FFMA
-    and vector shared-memory loads, and no local-memory traffic (a spill)
-    and no tensor-core instruction."""
+def check_sass(lib_path, table=SASS_RULES):
+    """Phase 2: each kernel's SASS, from cuobjdump, must hold what its
+    design rests on and nothing it must avoid: by SASS_RULES the bf16 GEMM
+    wgmma (HGMMA) and TMA loads (UTMALDG), each instance of the f32 GEMM
+    FFMA and vector shared-memory loads; by LSTM_SASS_RULES the f32 LSTM
+    kernels FFMA; and none of the f32 kernels local-memory traffic (a
+    spill) or a tensor-core instruction."""
     from gantts_tpu_torch.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -361,21 +378,21 @@ def check_gemm_sass(lib_path):
                           text=True, timeout=300)
     if proc.returncode != 0:
         fail(f"cuobjdump failed: {proc.stderr.strip()[-500:]}")
-    counts = sass_counts(proc.stdout)
+    counts = sass_counts(proc.stdout, table)
     for name, c in counts.items():
         print(f"[2] SASS of {name}: " + ", ".join(
             f"{n} {op}" for op, n in c.items()))
-    problems = sass_problems(counts)
+    problems = sass_problems(counts, table)
     if problems:
         fail("; ".join(problems))
 
 
-def sass_problems(counts):
-    """What sass_counts' ``counts`` break of SASS_RULES: a GEMM with no
+def sass_problems(counts, table=SASS_RULES):
+    """What sass_counts' ``counts`` break of ``table``: a kernel with no
     function at all, or a function lacking what it needs or holding what it
     must avoid."""
     problems = []
-    for key, (need, avoid) in SASS_RULES.items():
+    for key, (need, avoid) in table.items():
         found = {n: c for n, c in counts.items() if key in n}
         if not found:
             problems.append(f"cuobjdump shows no function named like {key}")
@@ -613,8 +630,8 @@ def phase_lstm_kernels(dev, card, errs):
             dxp_p, db_p = L.lstm_bwd_scan_plain(whh, lengths, c_p, g4_p, gy,
                                                 reverse)
             tag = "".join("r" if r else "f" for r in reverse)
-            require_designs(L, "cluster" if dt == torch.bfloat16
-                            else "cooperative", dt, f"{str(dt)[6:]} {tag}")
+            require_designs(L, DESIGN[dt], dt, f"{str(dt)[6:]} {tag}",
+                            ndir=nd)
             for kernel, what, got, ref, lim in (
                     ("lstm_fwd_scan", "y", y_k, y_p, tol),
                     ("lstm_fwd_scan", "c", c_k, c_p, tol_state),
@@ -622,6 +639,10 @@ def phase_lstm_kernels(dev, card, errs):
                     ("lstm_bwd_scan", "dxp", dxp_k, dxp_p, tol),
                     ("lstm_bwd_scan", "db", db_k, db_p, tol_state)):
                 check(kernel, f"{what}:{tag}", dt, None, got, ref, lim, errs)
+            require_same_bits(
+                f"{str(dt)[6:]} {tag}", (y_k, c_k, g4_k, dxp_k, db_k),
+                L.lstm_fwd_scan(xp, whh, bias, lengths, reverse)
+                + L.lstm_bwd_scan(whh, lengths, c_p, g4_p, gy, reverse))
         for D in (LIN_DIM, 2 * H):
             x = randn(T, B, D, dt=torch.float32).requires_grad_(True)
             params = [dict(w_ih=uniform(D, 4 * H).requires_grad_(True),
@@ -671,7 +692,8 @@ def phase_lstm_kernels(dev, card, errs):
                     10),
             time_ms(lambda: L.lstm_bwd_scan_plain(whh, lengths, c, g4, gy,
                                                   rev), 1, warmup=1))}
-    require_designs(L, "cluster", torch.bfloat16, "timed, two directions")
+    require_designs(L, "cluster", torch.bfloat16, "timed, two directions",
+                    ndir=2)
     for kernel, (ms, plain_ms) in times.items():
         print(f"[3] time {kernel:13s} bfloat16 two directions "
               f"kernel {ms:.4f} ms ({ms * 1e3 / T:.2f} us per recurrence "
@@ -721,14 +743,29 @@ def phase_lstm_kernels(dev, card, errs):
     }
 
 
-def require_designs(L, want, dt, what, Bn=B):
+# The design each I/O dtype's LSTM scans take at the paths' shapes
+DESIGN = {torch.bfloat16: "cluster", torch.float32: "flag"}
+
+
+def require_same_bits(what, first, second):
+    """Fail unless a second launch of the LSTM scans on the same inputs
+    gave the same bits: the kernels sum in fixed orders, and nothing a
+    launch leaves behind reaches the next."""
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"[3] lstm scans {what}: a second launch gives identical bits: "
+          f"{same}")
+    if not same:
+        fail(f"the LSTM scans ({what}) differ between two launches")
+
+
+def require_designs(L, want, dt, what, Bn=B, ndir=1):
     """Print the design the launchers of lstm_fwd_scan and lstm_bwd_scan
-    take at the shape (Bn, H) in ``dt``; fail unless both are ``want``: the
-    training steps' bf16 shapes must take the cluster kernels, f32 the
-    cooperative ones."""
+    take at the shape (Bn, H, ndir) in ``dt``; fail unless both are
+    ``want``: the paths' bf16 shapes must take the cluster kernels, their
+    f32 shapes the flag design."""
     for kernel, design in (("lstm_fwd_scan", L.fwd_design),
                            ("lstm_bwd_scan", L.bwd_design)):
-        took = design(Bn, H, dt)
+        took = design(Bn, H, dt, ndir)
         print(f"[3] {kernel} {what}: {took} kernel")
         if took != want:
             fail(f"{kernel} ({what}) takes the {took} kernel, expected the "
@@ -736,7 +773,7 @@ def require_designs(L, want, dt, what, Bn=B):
 
 
 def time_cudnn_lstm(dev, card, gen, lengths, reverse, D=None,
-                    dt=torch.bfloat16):
+                    dt=torch.bfloat16, breakdown=False):
     """The library yardstick of the LSTM scans: one torch.nn.LSTM layer
     (cuDNN) with the directions of ``reverse`` (both, or one) at the step's
     shapes, in ``dt``, D inputs (by default H * directions, what the layers
@@ -782,8 +819,32 @@ def time_cudnn_lstm(dev, card, gen, lengths, reverse, D=None,
     print(f"[3] time cuDNN {'bidirectional' if nd == 2 else 'one-direction'}"
           f" LSTM layer {str(dt)[6:]} D={D}: forward {t['fwd']:.4f} ms, "
           f"forward+backward {t['fwd+bwd']:.4f} ms; the port's layer "
-          f"{t['port fwd']:.4f} / {t['port fwd+bwd']:.4f} ms  [{card}]")
+          f"{t['port fwd']:.4f} / {t['port fwd+bwd']:.4f} ms (backward "
+          f"{t['port fwd+bwd'] - t['port fwd']:.4f}; cuDNN's "
+          f"{t['fwd+bwd'] - t['fwd']:.4f})  [{card}]")
+    if breakdown:
+        trace_kernels(f"the port's {str(dt)[6:]} layer D={D} forward+"
+                      f"backward", port_fwd_bwd, card)
     return t
+
+
+def trace_kernels(what, fn, card, calls=3):
+    """Device time per kernel name of ``fn`` (after one untraced call), per
+    call, from torch.profiler: where a layer's time goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per_name = ms_by_name(device_events(prof), calls)
+    total = sum(per_name.values())
+    print(f"[3] {what}: device events {total:.4f} ms a call  [{card}]")
+    for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"[3]   {ms:8.4f} ms  {name[:100]}")
 
 
 def phase_vc_lstm_kernels(dev, card, errs):
@@ -792,16 +853,21 @@ def phase_vc_lstm_kernels(dev, card, errs):
     and reversed, D = 177 (layer 0, which the bf16 GEMM copies into rows
     184 wide) and 512.  sru_proj_gemm's xp, then both scans fed that xp,
     against their plain versions, in float32 (the bundle's own dtype: the
-    cooperative kernels) and bfloat16 (the cluster kernels), each printing
-    the design it took.  Then the f32 kernels timed beside their plain
-    versions, and the one-direction layer beside cuDNN's at D = 177 in
-    both dtypes.
+    flag design) and bfloat16 (the cluster kernels), each printing the
+    design it took, and launched again for identical bits.
 
     Phases 8 and 9 give the f32 kernels two more shapes, checked the same
-    way (forward direction, the cooperative design required): phase 9's
-    one utterance, B=1 at T=480 (a 467-frame utterance padded to the
-    bucket multiple of 32), and phase 8's trailing and test batches, B=20
-    with 3 real rows and 17 zero-length rows that pad the batch."""
+    way (forward direction, the flag design required): phase 9's one
+    utterance, B=1 at T=480 (a 467-frame utterance padded to the bucket
+    multiple of 32), and phase 8's trailing and test batches, B=20 with 3
+    real rows and 17 zero-length rows that pad the batch.
+
+    Then the f32 kernels timed at every one of those shapes (F32_LSTM_TIMED,
+    also with two directions at the step's shape) beside their bounds and,
+    at the step's shape, their plain versions; the one-direction layer
+    beside cuDNN's at D = 177 in both dtypes, and the port's f32 layer's
+    forward and backward broken down by kernel (torch.profiler).  Returns
+    the f32 records at the step's shape, one direction."""
     from gantts_tpu_torch.kernels import lstm_scan as L
     from gantts_tpu_torch.kernels import sru_scan as K
 
@@ -815,18 +881,12 @@ def phase_vc_lstm_kernels(dev, card, errs):
     def randn(*shape, dt):
         return torch.randn(shape, generator=gen, device=dev).to(dt)
 
-    def lengths_of(values):
-        return torch.as_tensor(np.asarray(values, np.int32), device=dev)
-
     f32, bf16 = torch.float32, torch.bfloat16
-    lengths = lengths_of(bench_lengths(np.random.RandomState(0)))
-    cases = [  # dtype, T, lengths, directions, label
-        (f32, T, lengths, ((False,), (True,)), "vc"),
-        (bf16, T, lengths, ((False,), (True,)), "vc"),
-        (f32, 480, lengths_of([467]), ((False,),), "vc9"),
-        (f32, T, lengths_of([497, 301, 402] + [0] * 17), ((False,),),
-         "vc8")]
-    for dt, Tn, lens, reverses, label in cases:
+    cases = [(f32, "vc", ((False,), (True,))), (bf16, "vc", ((False,),
+                                                            (True,))),
+             (f32, "vc9", ((False,),)), (f32, "vc8", ((False,),))]
+    for dt, label, reverses in cases:
+        Tn, lens = vc_lstm_shape(label, dev)
         Bn = len(lens)
         tol, tol_state = LSTM_TOL[dt], LSTM_TOL_STATE[dt]
         whh, bias = uniform(1, H, 4 * H).to(dt), uniform(1, 4 * H)
@@ -855,41 +915,89 @@ def phase_vc_lstm_kernels(dev, card, errs):
                         ("lstm_bwd_scan", "dxp", dxp_k, dxp_p, tol),
                         ("lstm_bwd_scan", "db", db_k, db_p, tol_state)):
                     check(kernel, f"{what}:{tag}", dt, D, got, ref, lim, errs)
-        require_designs(L, "cluster" if dt == bf16 else "cooperative", dt,
-                        f"{str(dt)[6:]} one direction, {label}, B={Bn} "
-                        f"T={Tn}", Bn=Bn)
+                require_same_bits(
+                    f"{str(dt)[6:]} {tag} D={D}",
+                    (y_k, c_k, g4_k, dxp_k, db_k),
+                    L.lstm_fwd_scan(xp, whh, bias, lens, reverse)
+                    + L.lstm_bwd_scan(whh, lens, c_p, g4_p, gy, reverse))
+        require_designs(L, DESIGN[dt], dt, f"{str(dt)[6:]} one direction, "
+                        f"{label}, B={Bn} T={Tn}", Bn=Bn)
 
-    one = (False,)
-    xp = (randn(T, B, 4 * H, dt=f32) * 0.5)
-    whh, bias = uniform(1, H, 4 * H), uniform(1, 4 * H)
-    gy = randn(T, B, H, dt=f32)
-    _, c, g4 = L.lstm_fwd_scan(xp, whh, bias, lengths, one)
-    # Bounds in f32 I/O, one direction: xp, c, g4 and gy are read on valid
-    # frames only, y, c, g4 and dxp written on all of them; the recurrent
-    # product is 2 * H * 4H operations per valid frame, on the f32 FMA
-    # pipes (no tensor cores in f32).
-    nv, M = float(lengths.sum()), T * B
-    ops = 2 * nv * H * 4 * H
-    wts = (H * 4 * H + 4 * H) * 4
-    fwd = record(
-        time_ms(lambda: L.lstm_fwd_scan(xp, whh, bias, lengths, one), 10),
-        time_ms(lambda: L.lstm_fwd_scan_plain(xp, whh, bias, lengths, one),
-                1, warmup=1),
-        nv * 4 * H * 4 + wts + M * (H + H + 4 * H) * 4, ops, f32)
-    bwd = record(
-        time_ms(lambda: L.lstm_bwd_scan(whh, lengths, c, g4, gy, one), 10),
-        time_ms(lambda: L.lstm_bwd_scan_plain(whh, lengths, c, g4, gy, one),
-                1, warmup=1),
-        wts + nv * (H + 4 * H + H) * 4 + M * 4 * H * 4 + 4 * H * 4, ops, f32)
-    print(f"[3] time lstm scans float32 one direction (cooperative): forward "
-          f"kernel {fwd['ms']:.4f} ms ({fwd['ms'] * 1e3 / T:.2f} us per step)"
-          f", plain {fwd['plain_ms']:.4f} ms, f32 bound "
-          f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']}); backward kernel "
-          f"{bwd['ms']:.4f} ms ({bwd['ms'] * 1e3 / T:.2f} us per step), plain"
-          f" {bwd['plain_ms']:.4f} ms, f32 bound {bwd['bound_ms']:.4f} ms "
-          f"({bwd['bound_by']})  [{card}]")
+    out = None
+    for label, reverse in F32_LSTM_TIMED:
+        Tn, lens = vc_lstm_shape(label, dev)
+        Bn, nd = len(lens), len(reverse)
+        require_designs(L, "flag", f32, f"timed, {label}, {nd} "
+                        f"direction(s)", Bn=Bn, ndir=nd)
+        xp = randn(Tn, Bn, nd * 4 * H, dt=f32) * 0.5
+        whh, bias = uniform(nd, H, 4 * H), uniform(nd, 4 * H)
+        gy = randn(Tn, Bn, nd * H, dt=f32)
+        _, c, g4 = L.lstm_fwd_scan(xp, whh, bias, lens, reverse)
+        plain = (label, nd) == ("vc", 1)  # the plain loops take ~0.5 s
+        fwd_bytes, bwd_bytes, ops = lstm_f32_bounds(lens, Tn, nd)
+        fwd = record(
+            time_ms(lambda: L.lstm_fwd_scan(xp, whh, bias, lens, reverse),
+                    10),
+            time_ms(lambda: L.lstm_fwd_scan_plain(xp, whh, bias, lens,
+                                                  reverse), 1, warmup=1)
+            if plain else None, fwd_bytes, ops, f32)
+        bwd = record(
+            time_ms(lambda: L.lstm_bwd_scan(whh, lens, c, g4, gy, reverse),
+                    10),
+            time_ms(lambda: L.lstm_bwd_scan_plain(whh, lens, c, g4, gy,
+                                                  reverse), 1, warmup=1)
+            if plain else None, bwd_bytes, ops, f32)
+        print(f"[3] time lstm scans float32 {label} B={Bn} T={Tn} {nd} "
+              f"direction(s) (flag): forward {fwd['ms']:.4f} ms "
+              f"({fwd['ms'] * 1e3 / Tn:.2f} us per step), backward "
+              f"{bwd['ms']:.4f} ms ({bwd['ms'] * 1e3 / Tn:.2f} us per step);"
+              f" bounds {fwd['bound_ms']:.4f} / {bwd['bound_ms']:.4f} ms "
+              f"({fwd['bound_by']})" + (
+                  f"; plain {fwd['plain_ms']:.4f} / {bwd['plain_ms']:.4f} ms"
+                  if plain else "") + f"  [{card}]")
+        if plain:
+            out = {k: dict(T=Tn, B=Bn, H=H, directions=nd, **rec)
+                   for k, rec in (("lstm_fwd_scan", fwd),
+                                  ("lstm_bwd_scan", bwd))}
+    lengths = vc_lstm_shape("vc", dev)[1]
     for dt in (f32, bf16):
-        time_cudnn_lstm(dev, card, gen, lengths, one, D=VC_DIM, dt=dt)
+        t = time_cudnn_lstm(dev, card, gen, lengths, (False,), D=VC_DIM,
+                            dt=dt, breakdown=dt == f32)
+        if dt == f32:
+            out["lstm_fwd_scan"]["library_ms"] = t["fwd"]
+            out["lstm_bwd_scan"]["library_ms"] = t["fwd+bwd"] - t["fwd"]
+    return out
+
+
+# Phase 3's f32 LSTM timings: (shape label of vc_lstm_shape, directions)
+F32_LSTM_TIMED = (("vc", (False,)), ("vc", (False, True)), ("vc9", (False,)),
+                  ("vc8", (False,)))
+
+
+def vc_lstm_shape(label, dev):
+    """T and the lengths (int32 on ``dev``) of phase 3's VC LSTM shapes:
+    "vc" the step's B=20 at T=512 (bench_lengths), "vc9" phase 9's one
+    utterance (467 frames padded to 480), "vc8" phase 8's trailing batches
+    (3 real rows, 17 of length 0)."""
+    values = {"vc": (T, bench_lengths(np.random.RandomState(0))),
+              "vc9": (480, [467]),
+              "vc8": (T, [497, 301, 402] + [0] * 17)}[label]
+    return values[0], torch.as_tensor(np.asarray(values[1], np.int32),
+                                      device=dev)
+
+
+def lstm_f32_bounds(lengths, Tn, nd):
+    """Bytes of the f32 forward and backward scans and their operations, at
+    Tn steps of ``lengths`` with nd directions: xp, c, g4 and gy are read
+    on valid frames only, y, c, g4 and dxp written on all of them; W_hh and
+    the bias read once; the recurrent product is 2 * H * 4H operations per
+    valid frame and direction, on the f32 FMA pipes (no tensor cores in
+    f32)."""
+    nv, M = float(lengths.sum()), Tn * len(lengths)
+    wts = (H * 4 * H + 4 * H) * 4
+    fwd = nd * (nv * 4 * H * 4 + wts + M * (H + H + 4 * H) * 4)
+    bwd = nd * (wts + nv * (H + 4 * H + H) * 4 + M * 4 * H * 4 + 4 * H * 4)
+    return fwd, bwd, nd * 2 * nv * H * 4 * H
 
 
 # Phase 3's synthesis shapes: one utterance (B=1) in the bundles' float32,
@@ -1145,13 +1253,46 @@ def vc_batch(hp, dev):
 
 
 def make_trainer(hp, dev):
+    """A GAN trainer with unit statistics, but for the acoustic bundles'
+    V/UV static, which denormalizes around 2: targets and predictions near
+    0 are voiced, so the F0 error, taken over frames voiced in both, is a
+    number (as tests/test_torch_step.py's batch makes it).  The statistics
+    enter only the metrics."""
     from gantts_tpu_torch.train import GanTrainer, StepConfig
 
     cfg = StepConfig.from_hparams(hp, w_d=1.0, mse_w=0.0, mge_w=1.0,
                                   update_d=True, update_g=True)
     out_dim = hp.generator_params["out_dim"]
-    return GanTrainer(cfg, np.zeros(out_dim, np.float32),
-                      np.ones(out_dim, np.float32), dev)
+    y_mean = np.zeros(out_dim, np.float32)
+    if cfg.name == "acoustic":
+        y_mean[sum(hp.stream_sizes[:2])] = 2.0
+    return GanTrainer(cfg, y_mean, np.ones(out_dim, np.float32), dev)
+
+
+def small_step_batch(hp, Ts, Bs):
+    """Phase 5's batch: Bs x Ts frames of uniform [0, 1) features, ragged
+    lengths (the last row full), from seed 1, and the dense MLPG matrix
+    where the bundle has dynamic features."""
+    from gantts_tpu_torch.core.windows import unit_variance_mlpg_matrix
+
+    rs = np.random.RandomState(1)
+    gp = hp.generator_params
+    batch = [rs.rand(Bs, Ts, gp["in_dim"]).astype(np.float32),
+             rs.rand(Bs, Ts, gp["out_dim"]).astype(np.float32),
+             np.r_[rs.randint(Ts // 2, Ts, Bs - 1), Ts].astype(np.int32)]
+    R = (unit_variance_mlpg_matrix(hp.windows, Ts)
+         if any(hp.has_dynamic_features) else None)
+    return batch, R
+
+
+def loss_gap(a, b):
+    """|a - b| / max(|b|, 1e-6); 0 where both are NaN, infinite where one
+    alone is (a NaN never agrees with a number)."""
+    if math.isnan(a) and math.isnan(b):
+        return 0.0
+    if math.isnan(a) or math.isnan(b):
+        return math.inf
+    return abs(a - b) / max(abs(b), 1e-6)
 
 
 def phase_main_path(dev, card, tag, hp, per_step, n_expected, make_batch,
@@ -1242,13 +1383,39 @@ KERNEL_GROUPS = (("sru_proj_gemm", ("proj_gemm",)),
                  ("sru_fwd_scan", ("sru_fwd_scan",)),
                  ("sru_bwd_scan", ("sru_bwd_scan",)),
                  ("lstm_fwd_scan", ("lstm_fwd_kernel",
-                                    "lstm_fwd_cluster_kernel")),
+                                    "lstm_fwd_cluster_kernel",
+                                    "lstm_fwd_flag_kernel")),
                  ("lstm_bwd_scan", ("lstm_bwd_kernel",
-                                    "lstm_bwd_cluster_kernel")),
+                                    "lstm_bwd_cluster_kernel",
+                                    "lstm_bwd_flag_kernel")),
                  ("linear_recurrence_fwd", ("linear_recurrence_fwd",)),
                  ("linear_recurrence_bwd", ("linear_recurrence_bwd",)),
                  ("library GEMMs (dx, dW, D, head, MLPG)",
                   ("gemm", "cutlass", "xmma", "cublas", "nvjet")))
+
+
+def device_events(prof):
+    """The device events of a torch.profiler trace: kernels, copies and
+    fills.  Device-side copies of host ranges (record_function and the
+    optimizer's annotations) are user annotations, not device work: they
+    are left out."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in host_names
+            and e.time_range.end > e.time_range.start]
+
+
+def ms_by_name(events, calls):
+    """Device ms per call of each name among ``events``."""
+    per_name = {}
+    for e in events:
+        per_name[e.name] = per_name.get(e.name, 0.0) + \
+            (e.time_range.end - e.time_range.start) / 1e3 / calls
+    return per_name
 
 
 def phase_profile(tag, run_steps, ms_unprofiled, card):
@@ -1260,7 +1427,6 @@ def phase_profile(tag, run_steps, ms_unprofiled, card):
     adds host time per launch, so that idle share is an upper bound for an
     unprofiled step.  Returns the device events' names, or None when the
     trace holds no device activity."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
@@ -1269,15 +1435,8 @@ def phase_profile(tag, run_steps, ms_unprofiled, card):
         with record_function("chip_smoke_steps"):
             run_steps(PROFILE_STEPS)
             torch.cuda.synchronize()
-    events = prof.events()
-    span = [e for e in events if e.name == "chip_smoke_steps"]
-    # Device-side copies of host ranges (record_function and the optimizer's
-    # annotations) are user annotations, not device work: leave them out.
-    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
-    dev = [e for e in events if e.device_type == DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)
-           and e.name not in host_names
-           and e.time_range.end > e.time_range.start]
+    span = [e for e in prof.events() if e.name == "chip_smoke_steps"]
+    dev = device_events(prof)
     if not span or not dev:
         print(f"[{tag}P] the trace holds no device activity: device time not "
               f"measured  [{card}]")
@@ -1286,10 +1445,7 @@ def phase_profile(tag, run_steps, ms_unprofiled, card):
     wall = (t1 - t0) / 1e3 / PROFILE_STEPS
     busy = _union_us([(e.time_range.start, e.time_range.end)
                       for e in dev]) / 1e3 / PROFILE_STEPS
-    per_name = {}
-    for e in dev:
-        per_name[e.name] = per_name.get(e.name, 0.0) + \
-            (e.time_range.end - e.time_range.start) / 1e3 / PROFILE_STEPS
+    per_name = ms_by_name(dev, PROFILE_STEPS)
     summed = sum(per_name.values())
     print(f"[{tag}P] {PROFILE_STEPS} traced steps: wall {wall:.3f} ms/step "
           f"(unprofiled {ms_unprofiled:.3f}), device busy {busy:.3f} "
@@ -1310,6 +1466,17 @@ def phase_profile(tag, run_steps, ms_unprofiled, card):
     for name, t in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"[{tag}P]   top {t:8.3f} ms/step  {name[:90]}")
     return set(per_name)
+
+
+# Phases 5-5c: the small float32 acoustic steps, by tag
+SMALL_ACOUSTIC_STEPS = {
+    "5": lambda: acoustic_hp("float32", num_hidden=2, hidden_dim=64,
+                             dropout=0.0, rnn_dropout=0.0),
+    "5b": lambda: lstm_hp("float32", num_hidden=2, hidden_dim=64,
+                          dropout=0.0),
+    "5c": lambda: acoustic_hp("float32", num_hidden=3, hidden_dim=64,
+                              dropout=0.0, rnn_dropout=0.0,
+                              bidirectional=False)}
 
 
 def phase_small_step(dev, tag, hp, Ts=64, Bs=4, probe=None):
@@ -1335,7 +1502,10 @@ def phase_small_step(dev, tag, hp, Ts=64, Bs=4, probe=None):
     (5e: 177 -> 177 through an In2OutRNNHighwayNet, which applies MLPG
     itself, the discriminator on the 59 static mel-cepstra).
 
-    The batch is Bs x Ts frames.  ``probe``, where given, computes
+    The batch is Bs x Ts frames (small_step_batch).  The acoustic steps'
+    V/UV denormalizes around 2 (make_trainer), so that f0_rmse is a
+    number on both sides and is held to PRE_RTOL like any loss (a NaN on
+    one side alone fails).  ``probe``, where given, computes
     tensors from the generator on the same batch before the step; each is
     held to PROBE_RTOL of its scale, and the control must exceed that
     limit in the probe.  5e needs one: the In2Out highway passes the input
@@ -1344,17 +1514,10 @@ def phase_small_step(dev, tag, hp, Ts=64, Bs=4, probe=None):
     read 3.41e-6, barely over PRE_RTOL, on an NVIDIA H100 80GB HBM3,
     700 W), while in2out_probe reads the generator's own term and the
     gradients the slip reaches directly."""
-    from gantts_tpu_torch.core.windows import unit_variance_mlpg_matrix
     from gantts_tpu_torch.train.setup import init_models_and_states
 
     hp.discriminator_params.update(dropout=0.0)
-    rs = np.random.RandomState(1)
-    gp = hp.generator_params
-    batch = [rs.rand(Bs, Ts, gp["in_dim"]).astype(np.float32),
-             rs.rand(Bs, Ts, gp["out_dim"]).astype(np.float32),
-             np.r_[rs.randint(Ts // 2, Ts, Bs - 1), Ts].astype(np.int32)]
-    R = (unit_variance_mlpg_matrix(hp.windows, Ts)
-         if any(hp.has_dynamic_features) else None)
+    batch, R = small_step_batch(hp, Ts, Bs)
     states, probes = [], []
 
     def run(device, tf32):
@@ -1383,17 +1546,15 @@ def phase_small_step(dev, tag, hp, Ts=64, Bs=4, probe=None):
         return out
 
     cpu = run(torch.device("cpu"), False)
+    if not math.isfinite(cpu.get("f0_rmse", 0.0)):
+        fail(f"small step {tag}: f0_rmse is {cpu['f0_rmse']} on the CPU, "
+             f"so its comparison holds nothing")
     card, control = run(dev, False), run(dev, True)
-
-    def gap(a, b):
-        if math.isnan(a) and math.isnan(b):
-            return 0.0
-        return abs(a - b) / max(abs(b), 1e-6)
 
     worst, worst_control = 0.0, 0.0
     for k in cpu:
         lim = POST_RTOL if k in POST_UPDATE else PRE_RTOL
-        g, gc = gap(card[k], cpu[k]), gap(control[k], cpu[k])
+        g, gc = loss_gap(card[k], cpu[k]), loss_gap(control[k], cpu[k])
         ok = g <= lim
         print(f"[{tag}] {k:20s} card={card[k]:.8g} cpu={cpu[k]:.8g} "
               f"gap={g:.2e} limit={lim:.0e} {'ok' if ok else 'FAIL'}  "
@@ -1839,7 +2000,7 @@ def phase_vc_curriculum(card, tmp):
     spoofing model 2 epochs against the baseline generator, adversarial
     epoch 2 with the spoofing model as its reference discriminator.  Each
     stage must launch 3 sru_proj_gemm and 3 lstm_fwd_scan per step (the
-    f32 cooperative kernels), 3 lstm_bwd_scan per step that trains the
+    f32 flag design), 3 lstm_bwd_scan per step that trains the
     generator.  Checks every checkpoint, that the logged values are finite
     and that stage 5 logged the spoofing rate.  Returns the launch counts
     of all stages and the final generator's checkpoint."""
@@ -2337,6 +2498,73 @@ def phase_tts_demo(card, tmp):
     return totals
 
 
+def main_paths():
+    """Phase 4's paths: (tag, hparams, launches a step of each kernel,
+    expected parameter counts of the generator and the discriminator,
+    batch maker, unit of a time step)."""
+    none = {k: 0 for k in KERNELS}
+    vc_disc = mlp_param_count([VC_STATIC, 256, 256, 1])
+    return [("4", acoustic_hp("bfloat16"),
+             dict(none, sru_proj_gemm=12, sru_fwd_scan=12, sru_bwd_scan=12),
+             (sru_param_count(LIN_DIM, H, 6, OUT_DIM, True), None),
+             acoustic_batch, "frames"),
+            ("4b", lstm_hp("bfloat16"),
+             dict(none, sru_proj_gemm=6, lstm_fwd_scan=6, lstm_bwd_scan=6),
+             (lstm_param_count(LIN_DIM, H, 6, OUT_DIM), None),
+             acoustic_batch, "frames"),
+            ("4c", acoustic_hp("bfloat16", bidirectional=False),
+             dict(none, sru_proj_gemm=1, sru_fwd_scan=1, sru_bwd_scan=1,
+                  linear_recurrence_fwd=5, linear_recurrence_bwd=5),
+             (sru_param_count(LIN_DIM, H, 6, OUT_DIM, False), None),
+             acoustic_batch, "frames"),
+            ("4d", duration_hp("bfloat16"),
+             dict(none, sru_proj_gemm=12, sru_fwd_scan=12, sru_bwd_scan=12),
+             (sru_param_count(PHONE_DIM, H, 6, DUR_DIM, True), None),
+             duration_batch, "phones"),
+            ("4e", vc_hp("bfloat16", "In2OutRNNHighwayNet"),
+             dict(none, sru_proj_gemm=3, lstm_fwd_scan=3, lstm_bwd_scan=3),
+             (in2out_param_count("In2OutRNNHighwayNet"), vc_disc),
+             vc_batch, "frames"),
+            ("4f", vc_hp("bfloat16", "In2OutHighwayNet"), none,
+             (in2out_param_count("In2OutHighwayNet"), vc_disc), vc_batch,
+             "frames"),
+            ("4g", acoustic_hp("float32"),
+             dict(none, sru_proj_gemm=12, sru_fwd_scan=12, sru_bwd_scan=12),
+             (sru_param_count(LIN_DIM, H, 6, OUT_DIM, True), None),
+             acoustic_batch, "frames"),
+            ("4h", vc_hp("float32", "In2OutRNNHighwayNet"),
+             dict(none, sru_proj_gemm=3, lstm_fwd_scan=3, lstm_bwd_scan=3),
+             (in2out_param_count("In2OutRNNHighwayNet"), vc_disc),
+             vc_batch, "frames")]
+
+
+def run_path(dev, card, tag, hp, per_step, n_expected, make_batch, unit,
+             require_design=True):
+    """One phase 4 path with every plain version refused: its timed steps
+    (phase_main_path), its trace (phase_profile) and, where it launches the
+    LSTM scans and ``require_design``, the trace's proof that they ran the
+    design of the path's dtype (DESIGN).  Returns the launch counts of the
+    timed steps."""
+    from gantts_tpu_torch.kernels.sru_scan import io_dtype
+
+    with plain_versions_forbidden():
+        counts, ms, run_steps = phase_main_path(dev, card, tag, hp, per_step,
+                                                n_expected, make_batch, unit)
+        names = phase_profile(tag, run_steps, ms, card)
+    design = DESIGN[io_dtype(hp.compute_dtype)]
+    for way in ("fwd", "bwd"):
+        if not (require_design and counts[f"lstm_{way}_scan"]) or \
+                names is None:
+            continue
+        took = any(f"lstm_{way}_{design}_kernel" in n for n in names)
+        print(f"[{tag}] the trace holds lstm_{way}_scan's {design} kernel: "
+              f"{took}")
+        if not took:
+            fail(f"step {tag}: lstm_{way}_scan did not run its {design} "
+                 f"kernel")
+    return counts
+
+
 def main():
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2369,70 +2597,23 @@ def main():
             if any(k in line for k in ("registers", "spill", "error",
                                        "warning", "wgmma", "setmaxnreg")):
                 print(f"[2]   {line.strip()}")
-    check_gemm_sass(sru_scan._lib()._name)
+    check_sass(sru_scan._lib()._name)
+    check_sass(lstm_scan._lib()._name, LSTM_SASS_RULES)
 
     errs = {k: 0.0 for k in KERNELS}
     recs = phase_kernels(dev, card, errs)
     recs.update(phase_lstm_kernels(dev, card, errs))
     recs.update(phase_linear_kernels(dev, card, errs))
-    phase_vc_lstm_kernels(dev, card, errs)
+    for k, rec in phase_vc_lstm_kernels(dev, card, errs).items():
+        recs[k]["f32"] = rec
     phase_synthesis_kernels(dev, card, errs)
     recs["sru_proj_gemm"]["f32"] = phase_f32_gemm(dev, card, errs)
-    none = {k: 0 for k in KERNELS}
-    vc_disc = mlp_param_count([VC_STATIC, 256, 256, 1])
-    paths = [("4", acoustic_hp("bfloat16"),
-              dict(none, sru_proj_gemm=12, sru_fwd_scan=12, sru_bwd_scan=12),
-              (sru_param_count(LIN_DIM, H, 6, OUT_DIM, True), None),
-              acoustic_batch, "frames"),
-             ("4b", lstm_hp("bfloat16"),
-              dict(none, sru_proj_gemm=6, lstm_fwd_scan=6, lstm_bwd_scan=6),
-              (lstm_param_count(LIN_DIM, H, 6, OUT_DIM), None),
-              acoustic_batch, "frames"),
-             ("4c", acoustic_hp("bfloat16", bidirectional=False),
-              dict(none, sru_proj_gemm=1, sru_fwd_scan=1, sru_bwd_scan=1,
-                   linear_recurrence_fwd=5, linear_recurrence_bwd=5),
-              (sru_param_count(LIN_DIM, H, 6, OUT_DIM, False), None),
-              acoustic_batch, "frames"),
-             ("4d", duration_hp("bfloat16"),
-              dict(none, sru_proj_gemm=12, sru_fwd_scan=12, sru_bwd_scan=12),
-              (sru_param_count(PHONE_DIM, H, 6, DUR_DIM, True), None),
-              duration_batch, "phones"),
-             ("4e", vc_hp("bfloat16", "In2OutRNNHighwayNet"),
-              dict(none, sru_proj_gemm=3, lstm_fwd_scan=3, lstm_bwd_scan=3),
-              (in2out_param_count("In2OutRNNHighwayNet"), vc_disc),
-              vc_batch, "frames"),
-             ("4f", vc_hp("bfloat16", "In2OutHighwayNet"), none,
-              (in2out_param_count("In2OutHighwayNet"), vc_disc), vc_batch,
-              "frames"),
-             ("4g", acoustic_hp("float32"),
-              dict(none, sru_proj_gemm=12, sru_fwd_scan=12, sru_bwd_scan=12),
-              (sru_param_count(LIN_DIM, H, 6, OUT_DIM, True), None),
-              acoustic_batch, "frames")]
-    launches = dict(none)
-    for tag, hp, per_step, n_expected, make_batch, unit in paths:
-        with plain_versions_forbidden():
-            counts, ms, run_steps = phase_main_path(dev, card, tag, hp,
-                                                    per_step, n_expected,
-                                                    make_batch, unit)
-            names = phase_profile(tag, run_steps, ms, card)
-            for way in ("fwd", "bwd"):
-                if not counts[f"lstm_{way}_scan"] or names is None:
-                    continue
-                took = any(f"lstm_{way}_cluster_kernel" in n for n in names)
-                print(f"[{tag}] the trace holds lstm_{way}_scan's cluster "
-                      f"kernel: {took}")
-                if not took:
-                    fail(f"step {tag}: lstm_{way}_scan did not run its "
-                         f"cluster kernel")
-        for k, n in counts.items():
+    launches = {k: 0 for k in KERNELS}
+    for path in main_paths():
+        for k, n in run_path(dev, card, *path).items():
             launches[k] += n
-    phase_small_step(dev, "5", acoustic_hp(
-        "float32", num_hidden=2, hidden_dim=64, dropout=0.0, rnn_dropout=0.0))
-    phase_small_step(dev, "5b", lstm_hp(
-        "float32", num_hidden=2, hidden_dim=64, dropout=0.0))
-    phase_small_step(dev, "5c", acoustic_hp(
-        "float32", num_hidden=3, hidden_dim=64, dropout=0.0, rnn_dropout=0.0,
-        bidirectional=False))
+    for tag, hp in SMALL_ACOUSTIC_STEPS.items():
+        phase_small_step(dev, tag, hp())
     phase_small_step(dev, "5d", duration_hp(
         "float32", num_hidden=2, hidden_dim=64, dropout=0.0, rnn_dropout=0.0))
     phase_small_step(dev, "5e", vc_hp(

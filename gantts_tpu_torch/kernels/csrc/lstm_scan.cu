@@ -98,8 +98,23 @@
 //     16 slices of 2.7 KB into each block, takes about 1.55 us: distributed
 //     shared memory's bandwidth, about 34 GB/s into an SM.
 //
-// Every other shape (f32 I/O, whose W_hh slices would not fit in
-// registers; H other than 256 or 512; B above 24) takes the cooperative
+// float32 with B <= 24 and H = 256, 384 or 512 (the f32 paths' shapes: the
+// vc bundle's LSTM at B=20 and VC synthesis's B=1) takes the flag design
+// (`lstm_fwd_flag_kernel`, `lstm_bwd_flag_kernel`, below): 16 blocks cannot
+// hold f32 W_hh (4 MB at H=512) and would cap the FMA product at 16 SMs (42
+// MFLOP a step, at least 5.2 us at the H100's published f32 rate), so each
+// direction is spread over H / U blocks (the forward's 128 of U = 4 with one
+// direction, 64 of 8 otherwise), each block's slice of W_hh held in
+// registers for the launch.  Blocks exchange each step through global
+// scratch and per-block step flags (a release store, acquire polls on
+// exactly the flags a block needs) instead of a grid barrier; the forward
+// all-gathers h_{t-1} (40 KB a block at B=20), the backward reduce-scatters
+// partial dh (40 KB a block, where the cooperative backward re-reads all of
+// dgates_t, 160 KB); the cells' inputs are prefetched a step ahead by
+// cp.async and their outputs stored after the flag.
+//
+// Every other shape (f32 that the flag design's plan refuses, such as
+// H=64; H other than 256 or 512 in bf16; B above 24) takes the cooperative
 // design, chosen by shape in the launcher: a persistent kernel.
 // Each direction's hidden units are spread over up to 64 blocks (8 units
 // each at H=512).  A block keeps its slice of W_hh in shared memory for the
@@ -1208,6 +1223,484 @@ lstm_fwd_cluster_kernel(const __nv_bfloat16* __restrict__ xp,
   if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// ---------------------------------------------------------------------------
+// float32, the flag design (see the note at the top of the file): f32 I/O,
+// B <= kFMaxB, H split into H / U blocks of U units a direction, every
+// block resident (a cooperative launch), W_hh's column slice of the
+// block's 4U gate columns in registers for the launch.  The blocks of
+// a direction exchange each step through global scratch and per-block
+// step flags: a block stores its part, then releases its flag with the
+// step count (``publish``); a block that needs the parts of step s waits
+// with acquire loads on the flags of their sources (``wait_flags``) and
+// stages them into shared memory with 16-byte cp.async.cg (L2, never a stale
+// L1 line) by all its threads (``stage_f32``).  Flags count steps
+// monotonically over a launch (the wrapper zeroes them), so nothing is
+// reset.  Rows are padded to Bp, a multiple of 4 (16-byte copies, float2
+// reads of the products' operands).
+// ---------------------------------------------------------------------------
+
+constexpr int kFMaxB = 24;            // rows the flag design takes
+// units a block, in order of preference: [forward, backward].  The forward's
+// product halves with U = 4 (128 blocks); the backward's step is mostly its
+// exchange, cheaper between 64 blocks of 8 (on an NVIDIA H100 80GB HBM3 at
+// 700 W: PERF.md, the f32 LSTM finding).
+constexpr int kFUnits[2][2] = {{4, 8}, {8, 4}};
+constexpr int kFMinBlocks = 64;       // blocks a direction, at least
+constexpr size_t kFMaxSmem = 232448;  // shared memory a block may use
+constexpr int kFSplits = 32;  // the forward product's K splits (k mod 32)
+constexpr int kFMaxL = 16;    // k a forward thread takes: H / 32
+constexpr int kFMaxH = 512;   // H the flag design takes, at most
+
+__host__ __device__ inline int pad4(int B) { return (B + 3) & ~3; }
+
+// The kernels are instantiated for each U and each padded row count BP
+// (B rounded up to 4), so that a thread's rows are a constant: the
+// products' loops then hold no branch (a guard on a run-time row count cost
+// about 1 us a step on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md).  The
+// forward's threads: U column groups of 4 gate columns x RG row groups of R
+// rows x kFSplits K splits = 256; partial sums [kFSplits][BP][PC], rows of
+// PC = 4U + U floats (the cells' reads of them hit 32 banks).  The
+// backward's: KG = 32 U groups of columns of dh (k0 = kg + KG i, i < H / KG
+// <= KrMax) x RG row groups = 256.
+// Either keeps 64 floats of W_hh a thread in registers at H = 512.
+template <int U, int BP>
+struct FlagShape {
+  static_assert(BP % 4 == 0 && BP <= kFMaxB, "rows in fours, at most 24");
+  static constexpr int RG = 8 / U, R = BP / RG, PC = 5 * U;
+  static constexpr int KG = 32 * U, KrMax = kFMaxH / KG;
+};
+
+// Forward: h_{t-1} staged [H][Bp], the partial sums [32][Bp][5U], the xp
+// slots [2][256] float4 (W_hh's slice lives in registers).
+inline size_t flag_fwd_smem(int B, int H, int U) {
+  return sizeof(float) * ((size_t)H * pad4(B) +
+                          (size_t)kFSplits * pad4(B) * 5 * U +
+                          2 * 4 * kThreads);
+}
+
+// Backward: the partial-dh slices of this block's units from every block
+// [H / U][Bp][U], dgates_t [4U][Bp], the cell input slots [2][2][256]
+// float4 (W_hh's slice lives in registers).
+inline size_t flag_bwd_smem(int B, int H, int U) {
+  return sizeof(float) * ((size_t)H * pad4(B) + (size_t)4 * U * pad4(B) +
+                          2 * 2 * 4 * kThreads);
+}
+
+// The plan of the forward (way 0) or the backward (way 1): the first U of
+// kFUnits[way] that divides H into 32 U (the threads' split of the
+// products), whose H / U blocks a direction are at least kFMinBlocks,
+// whose ndir * H / U blocks fit one an SM on ``sms`` SMs, and whose shared
+// memory fits; 0 where none does (the shape goes to the cooperative
+// design).  kernels/lstm_scan.py ``_flag_plan`` is the same rule.
+inline int f32_flag_units(int B, int H, int ndir, int bf16, int sms,
+                          int way) {
+  if (bf16 || B < 1 || B > kFMaxB || H > kFMaxH) return 0;
+  for (int U : kFUnits[way]) {
+    if (H % (32 * U) || H / U < kFMinBlocks || ndir * (H / U) > sms)
+      continue;
+    if ((way ? flag_bwd_smem(B, H, U) : flag_fwd_smem(B, H, U)) <=
+        kFMaxSmem)
+      return U;
+  }
+  return 0;
+}
+
+// ... on the current device (-1 where it cannot be queried).
+int flag_units(int B, int H, int ndir, int bf16, int way) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return -1;
+  return f32_flag_units(B, H, ndir, bf16, sms, way);
+}
+
+// A load the compiler may not repeat: W_hh's values held in registers for
+// a launch are read once, not reloaded from global memory at each use.
+__device__ __forceinline__ float ld_once(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// Threads 0..nb-1 each wait until source block tid's flag reaches s, with
+// acquire loads; the block barrier then orders every thread's later reads
+// after those acquires.  Every block is resident (a cooperative launch), so
+// a flag that has not come after 2^24 polls (seconds) never will: the
+// kernel traps, and the launch fails instead of hanging the card.  (Each
+// poller copying its own source's part as soon as its flag came, beside
+// the waits for later ones, was slower on an NVIDIA H100 80GB HBM3 at
+// 700 W: 20 to 40 copies a thread in series; PERF.md.)
+__device__ __forceinline__ void wait_flags(const unsigned* flags, int d,
+                                           int nb, int s) {
+  if ((int)threadIdx.x < nb) {
+    const unsigned* f = flags + d * nb + threadIdx.x;
+    for (unsigned n = 0; ld_acquire(f) < (unsigned)s; ++n)
+      if (n == (1u << 24)) __trap();
+  }
+  __syncthreads();
+}
+
+// Every thread's stores of the step are issued (block barrier); thread 0
+// then releases the block's flag with the step count.
+__device__ __forceinline__ void publish(unsigned* flag, unsigned v) {
+  __syncthreads();
+  if (threadIdx.x == 0) st_release(flag, v);
+}
+
+// ``pieces`` runs of ``per16`` 16-byte pieces, ``stride`` floats apart at
+// src, copied back to back into dst by cp.async.cg by all the block's
+// threads; returns once they and the whole block are done.
+__device__ __forceinline__ void stage_f32(float* dst, const float* src,
+                                          int pieces, int per16,
+                                          int stride) {
+  for (int i = threadIdx.x; i < pieces * per16; i += kThreads) {
+    const int q = i / per16, r = i - q * per16;
+    cp_async16(dst + 4 * i, src + (size_t)q * stride + 4 * r);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Waits for this thread's cp.async groups but the newest when one more
+// was issued after the one wanted.
+__device__ __forceinline__ void wait_slots(bool newer) {
+  if (newer)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Forward, per block and step s > 0:
+//   wait for the H / U flags of step s - 1, stage h_{s-1} (hx, [H][Bp] f32,
+//   40 KB at B=20) into shared memory;
+//   the product: thread (split, rg, cg) sums h[k][rg r + q] W[k][cg 4 + e]
+//   over k = split, split + 32, ..., W's 4 columns held in registers for
+//   the launch, so that each h value read from shared memory feeds 4 FMAs
+//   (a warp's shared loads, broadcasts or not, cost one wavefront per 4
+//   bytes a lane, a quarter of the FMA pipes' rate: one column a thread
+//   with W in shared memory read 5x its FMA time on an NVIDIA H100 80GB
+//   HBM3 at 700 W, PERF.md);
+//   the cell (thread b U + u, B U threads): pre = (xp + b) + the 32
+//   splits' partial sums in split order, libm's expf / tanhf as the
+//   cooperative kernel; h into hx (the parity of s), the flag released;
+//   then y, c and g4 stored, off the chain.  xp of the next step is
+//   prefetched into the thread's slot while the step runs.
+template <int U, int BP>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_fwd_flag_kernel(const float* __restrict__ xp,
+                     const float* __restrict__ whh,
+                     const float* __restrict__ bias,
+                     const int* __restrict__ lengths, float* __restrict__ y,
+                     float* __restrict__ c, float* __restrict__ g4, float* hx,
+                     unsigned* flags, int nt, int B, int H, int ndir,
+                     int rev_mask) {
+  using S = FlagShape<U, BP>;
+  constexpr int Bp = BP, r = S::R;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nb = H / U, tid = threadIdx.x;
+  const int d = blockIdx.x / nb, blk = blockIdx.x % nb, j0 = blk * U;
+  const int rev = (rev_mask >> d) & 1;
+  const size_t G = (size_t)ndir * 4 * H, Y = (size_t)ndir * H;
+  float* xs = reinterpret_cast<float*>(smem);  // h_{t-1}, [H][Bp]
+  float* part = xs + (size_t)H * Bp;           // [kFSplits][Bp][PC]
+  float4* xslot =  // [2][256]
+      reinterpret_cast<float4*>(part + kFSplits * Bp * S::PC);
+
+  // This thread's part of the product: gate columns cg 4 .. cg 4 + 3
+  // (column g U + u is W_hh[:, g H + j0 + u]), rows rg r .. rg r + r - 1
+  // of the Bp, k = split + 32 i for i < H / 32, W's values in registers
+  // for the launch.
+  const int cg = tid % U, rg = (tid / U) % S::RG, split = tid / (U * S::RG);
+  const int nl = H / kFSplits;
+  float wr[kFMaxL][4];
+  {
+    const float* w = whh + (size_t)d * H * 4 * H;
+#pragma unroll
+    for (int i = 0; i < kFMaxL; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = cg * 4 + e;
+        wr[i][e] = i < nl ? ld_once(w + (size_t)(split + kFSplits * i) *
+                                            4 * H + (col / U) * H + j0 +
+                                        col % U)
+                          : 0.f;
+      }
+  }
+
+  const bool cell = tid < B * U;
+  const int b = tid / U, u = tid % U, j = j0 + u;
+  const int len = cell ? lengths[b] : 0;
+  float bq[4] = {0.f, 0.f, 0.f, 0.f}, h = 0.f, cc = 0.f;
+  if (cell)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) bq[q] = bias[(size_t)d * 4 * H + q * H + j];
+  auto prefetch = [&](int s, int p) {
+    if (!cell) return;
+    const int t = rev ? nt - 1 - s : s;
+    const float* xr = xp + ((size_t)t * B + b) * G + (size_t)d * 4 * H + j;
+    float* slot = reinterpret_cast<float*>(xslot + p * kThreads + tid);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      cp_async_small<4>(slot + q, xr + (size_t)q * H);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  auto xslot_at = [&](int p, int i) { return xslot[p * kThreads + i]; };
+  prefetch(0, 0);
+  __syncthreads();
+
+  for (int s = 0; s < nt; ++s) {
+    const int t = rev ? nt - 1 - s : s, p = s & 1;
+    if (s > 0) {
+      const float* hx_src = hx + (size_t)((p ^ 1) * ndir + d) * H * Bp;
+      wait_flags(flags, d, nb, s);
+      stage_f32(xs, hx_src, nb, U * Bp / 4, U * Bp);
+    }
+    if (s + 1 < nt) prefetch(s + 1, p ^ 1);
+    if (s > 0) {
+      float acc[r][4];
+#pragma unroll
+      for (int q = 0; q < r; ++q)
+        acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kFMaxL; ++i) {  // forward product
+        if (i >= nl) break;
+        const float* hp = xs + (split + kFSplits * i) * Bp + rg * r;
+#pragma unroll
+        for (int q = 0; q < r; q += 2) {
+          const float2 hv = *reinterpret_cast<const float2*>(hp + q);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[q][e] = fmaf(hv.x, wr[i][e], acc[q][e]);
+            acc[q + 1][e] = fmaf(hv.y, wr[i][e], acc[q + 1][e]);
+          }
+        }
+      }
+      float* pp = part + (split * Bp + rg * r) * S::PC + cg * 4;
+#pragma unroll
+      for (int q = 0; q < r; ++q)
+        *reinterpret_cast<float4*>(pp + q * S::PC) =
+            make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+    }
+    __syncthreads();  // the partial sums are in
+
+    float act[4], yv = 0.f;
+    if (cell) {
+      wait_slots(s + 1 < nt);  // this step's xp is in its slot
+      const float4 xv = xslot_at(p, tid);
+      const float xq[4] = {xv.x, xv.y, xv.z, xv.w};
+      float pre[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float sum = 0.f;
+        if (s > 0)
+#pragma unroll 8
+          for (int sp = 0; sp < kFSplits; ++sp)
+            sum += part[(sp * Bp + b) * S::PC + q * U + u];
+        pre[q] = (xq[q] + bq[q]) + sum;
+      }
+      const float m = t < len ? 1.f : 0.f;
+      act[0] = sigmoidf(pre[0]);
+      act[1] = sigmoidf(pre[1]);
+      act[2] = tanhf(pre[2]);
+      act[3] = sigmoidf(pre[3]);
+      const float c_new = act[1] * cc + act[0] * act[2];
+      const float h_new = act[3] * tanhf(c_new);
+      h = m * h_new + (1.f - m) * h;
+      cc = m * c_new + (1.f - m) * cc;
+      yv = h_new * m;
+      hx[((size_t)(p * ndir + d) * H + j) * Bp + b] = h;
+    }
+    if (s + 1 < nt) publish(flags + d * nb + blk, (unsigned)(s + 1));
+    if (cell) {  // off the chain: nothing in this launch reads them
+      const size_t row = (size_t)t * B + b;
+      y[row * Y + (size_t)d * H + j] = yv;
+      c[row * Y + (size_t)d * H + j] = cc;
+      float* gr = g4 + row * G + (size_t)d * 4 * H + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) gr[(size_t)q * H] = act[q];
+    }
+  }
+}
+
+// Backward, per block and step s (a reduce-scatter, as the bf16 cluster
+// kernel's):
+//   s > 0: wait for the flags of step s - 1 and stage this block's units'
+//   slices of every block's partial dh (px, [2][ndir][H / U][Bp][H]: Bp
+//   runs of U floats from each, 40 KB at B=20, in place of the cooperative
+//   kernel's 160 KB of dgates_t); the cell thread adds them to its carried
+//   dh in a fixed order of their sources;
+//   the cell forms dgates_t for the block's 4U columns (into shared memory
+//   and, off the chain, dxp) from the prefetched g4, c_t, c_{t-1} and gy;
+//   the product: the partial dh [Bp][H] = dgates_t W_hh[:, columns]^T,
+//   thread (rg, kg) taking its columns k0 = kg + KG i (its W_hh values in
+//   registers for the launch, each dgates_t value read feeding H / KG
+//   FMAs) for B rows rg r .. rg r + r - 1; a warp's 32 consecutive k0
+//   stored to px (the parity of s) as 128 contiguous bytes; the flag
+//   released.
+template <int U, int BP>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_bwd_flag_kernel(const float* __restrict__ whh,
+                     const int* __restrict__ lengths,
+                     const float* __restrict__ c,
+                     const float* __restrict__ g4,
+                     const float* __restrict__ gy, float* __restrict__ dxp,
+                     float* __restrict__ dbp, float* px, unsigned* flags,
+                     int nt, int B, int H, int ndir, int rev_mask) {
+  using S = FlagShape<U, BP>;
+  constexpr int C = 4 * U, Bp = BP, r = S::R, KrMax = S::KrMax;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nb = H / U, tid = threadIdx.x;
+  const int d = blockIdx.x / nb, blk = blockIdx.x % nb, j0 = blk * U;
+  const int rev = (rev_mask >> d) & 1;
+  const size_t G = (size_t)ndir * 4 * H, Y = (size_t)ndir * H;
+  const size_t HB = (size_t)H * Bp;
+  float* xs = reinterpret_cast<float*>(smem);  // [nb][Bp][U]
+  float* dg = xs + HB;                         // dgates_t, [C][Bp]
+  float4* slot = reinterpret_cast<float4*>(dg + C * Bp);  // [2][2][256]
+
+  // This thread's part of the product: columns k0 = kg + KG i (i < H /
+  // KG) of the partial dh [Bp][H], its rows rg r .. rg r + r - 1, summed
+  // over the C gate columns of dgates_t; W_hh[k0, column g U + u = g H + j0
+  // + u] in registers for the launch.
+  const int rg = tid / S::KG, kg = tid % S::KG;
+  const int nkr = H / S::KG;
+  float wt[KrMax][C];
+  {
+    const float* w = whh + (size_t)d * H * 4 * H;
+#pragma unroll
+    for (int i = 0; i < KrMax; ++i)
+#pragma unroll
+      for (int cl = 0; cl < C; ++cl)
+        wt[i][cl] = i < nkr ? ld_once(w + (size_t)(kg + S::KG * i) * 4 * H +
+                                      (cl / U) * H + j0 + cl % U)
+                            : 0.f;
+  }
+  for (int i = tid; i < C * Bp; i += kThreads) dg[i] = 0.f;  // rows past B
+
+  const bool cell = tid < B * U;
+  const int b = tid / U, u = tid % U, j = j0 + u;
+  const int len = cell ? lengths[b] : 0;
+  float dh = 0.f, dcv = 0.f, db[4] = {0.f, 0.f, 0.f, 0.f};
+  // slot [p][0]: the four gates; [p][1]: c_t, c_{t-1}, gy
+  auto prefetch = [&](int s, int p) {
+    if (!cell) return;
+    const int t = rev ? s : nt - 1 - s, tp = rev ? t + 1 : t - 1;
+    const size_t row = (size_t)t * B + b;
+    float* sg = reinterpret_cast<float*>(slot + (2 * p) * kThreads + tid);
+    float* sc = reinterpret_cast<float*>(slot + (2 * p + 1) * kThreads + tid);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      cp_async_small<4>(sg + q, g4 + row * G + (size_t)d * 4 * H + q * H + j);
+    cp_async_small<4>(sc, c + row * Y + (size_t)d * H + j);
+    if (tp >= 0 && tp < nt)
+      cp_async_small<4>(sc + 1, c + ((size_t)tp * B + b) * Y +
+                                    (size_t)d * H + j);
+    else
+      sc[1] = 0.f;
+    cp_async_small<4>(sc + 2, gy + row * Y + (size_t)d * H + j);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  auto gslot = [&](int p, int i) { return slot[(2 * p) * kThreads + i]; };
+  auto cslot = [&](int p, int i) {
+    const float4 v = slot[(2 * p + 1) * kThreads + i];
+    return make_float3(v.x, v.y, v.z);
+  };
+  prefetch(0, 0);
+  __syncthreads();
+
+  for (int s = 0; s < nt; ++s) {
+    const int t = rev ? s : nt - 1 - s, p = s & 1;
+    if (s > 0) {
+      const float* px_src = px + (size_t)((p ^ 1) * ndir + d) * nb * HB + j0;
+      wait_flags(flags, d, nb, s);
+      stage_f32(xs, px_src, nb * Bp, U / 4, H);
+    }
+    if (s + 1 < nt) prefetch(s + 1, p ^ 1);
+    float dgv[4] = {0.f, 0.f, 0.f, 0.f};
+    if (cell) {
+      if (s > 0) {  // the blocks' partial dh, in a fixed order: source q
+        // into sum q % 4 (four chains, not one of nb adds), then the four
+        float a[4] = {0.f, 0.f, 0.f, 0.f};
+        const float* xq = xs + b * U + u;
+        for (int q = 0; q < nb; q += 4)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (q + e < nb) a[e] += xq[(q + e) * Bp * U];
+        dh += (a[0] + a[1]) + (a[2] + a[3]);
+      }
+      wait_slots(s + 1 < nt);  // this step's inputs are in their slots
+      const float4 gv = gslot(p, tid);
+      const float3 cv = cslot(p, tid);
+      const float ig = gv.x, fg = gv.y, gg = gv.z, og = gv.w;
+      const float m = t < len ? 1.f : 0.f;
+      const float tc = tanhf(cv.x);
+      const float da = m * (dh + cv.z);
+      const float do_ = da * tc;
+      const float dc_new = da * og * (1.f - tc * tc) + m * dcv;
+      const float di = dc_new * gg, df = dc_new * cv.y, dgg = dc_new * ig;
+      dgv[0] = di * ig * (1.f - ig);
+      dgv[1] = df * fg * (1.f - fg);
+      dgv[2] = dgg * (1.f - gg * gg);
+      dgv[3] = do_ * og * (1.f - og);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        dg[(q * U + u) * Bp + b] = dgv[q];
+        db[q] += dgv[q];
+      }
+      dh = (1.f - m) * dh;
+      dcv = (1.f - m) * dcv + dc_new * fg;
+    }
+    if (s + 1 < nt) {
+      __syncthreads();  // dgates_t is in dg
+      float acc[KrMax][r];
+#pragma unroll
+      for (int i = 0; i < KrMax; ++i)
+#pragma unroll
+        for (int q = 0; q < r; ++q) acc[i][q] = 0.f;
+#pragma unroll
+      for (int cl = 0; cl < C; ++cl) {  // backward product
+        const float* dp = dg + cl * Bp + rg * r;
+#pragma unroll
+        for (int q = 0; q < r; q += 2) {
+          const float2 dv = *reinterpret_cast<const float2*>(dp + q);
+#pragma unroll
+          for (int i = 0; i < KrMax; ++i) {
+            acc[i][q] = fmaf(dv.x, wt[i][cl], acc[i][q]);
+            acc[i][q + 1] = fmaf(dv.y, wt[i][cl], acc[i][q + 1]);
+          }
+        }
+      }
+      // [b][k0]: a warp's 32 consecutive k0 of one b are 128 bytes
+      float* out = px + ((size_t)(p * ndir + d) * nb + blk) * HB +
+                   (size_t)rg * r * H + kg;
+#pragma unroll
+      for (int i = 0; i < KrMax; ++i)
+        if (i < nkr)
+#pragma unroll
+          for (int q = 0; q < r; ++q)
+            out[(size_t)q * H + S::KG * i] = acc[i][q];
+      publish(flags + d * nb + blk, (unsigned)(s + 1));
+    }
+    if (cell) {  // off the chain
+      float* dr = dxp + ((size_t)t * B + b) * G + (size_t)d * 4 * H + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dr[(size_t)q * H] = dgv[q];
+    }
+  }
+  if (cell) {
+    float* out = dbp + (size_t)b * G + (size_t)d * 4 * H + j;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) out[(size_t)q * H] = db[q];
+  }
+}
+
 // The launch configuration of a cluster kernel, after its attributes: the
 // shared memory beyond 48 KB and the non-portable cluster size (16).
 template <typename Kernel>
@@ -1345,6 +1838,54 @@ int bwd_launch(const T* whh, const int* lengths, const float* c, const T* g4,
       smem_bytes<T>(4 * H, hs, hs, B, 6), args, stream);
 }
 
+// The flag kernel of the forward (way 0) or the backward (1) with U units
+// a block, instantiated for each padded row count BP = 4, 8, ..., 24.
+template <int U, int... BP>
+const void* flag_kernel_of(int way, int B) {
+  static const void* const fwd[] = {
+      reinterpret_cast<const void*>(&lstm_fwd_flag_kernel<U, BP>)...};
+  static const void* const bwd[] = {
+      reinterpret_cast<const void*>(&lstm_bwd_flag_kernel<U, BP>)...};
+  return (way ? bwd : fwd)[pad4(B) / 4 - 1];
+}
+
+const void* flag_kernel(int way, int U, int B) {
+  return U == 4 ? flag_kernel_of<4, 4, 8, 12, 16, 20, 24>(way, B)
+                : flag_kernel_of<8, 4, 8, 12, 16, 20, 24>(way, B);
+}
+
+// The flag design's launches: ndir * H / U blocks, cooperative (every block
+// must be resident for the flag waits).
+int flag_fwd_launch(int U, const float* xp, const float* whh,
+                    const float* bias, const int* lengths, float* y,
+                    float* c, float* g4, float* hx, unsigned* flags, int nt,
+                    int B, int H, int ndir, int rev_mask,
+                    cudaStream_t stream) {
+  void* args[] = {&xp, &whh, &bias,  &lengths, &y,  &c, &g4,
+                  &hx, &flags, &nt, &B, &H, &ndir, &rev_mask};
+  return (int)cooperative_launch(flag_kernel(0, U, B), ndir * (H / U),
+                                 flag_fwd_smem(B, H, U), args, stream);
+}
+
+int flag_bwd_launch(int U, const float* whh, const int* lengths,
+                    const float* c, const float* g4, const float* gy,
+                    float* dxp, float* dbp, float* px, unsigned* flags,
+                    int nt, int B, int H, int ndir, int rev_mask,
+                    cudaStream_t stream) {
+  void* args[] = {&whh, &lengths, &c,  &g4, &gy, &dxp, &dbp,
+                  &px,  &flags,   &nt, &B,  &H,  &ndir, &rev_mask};
+  return (int)cooperative_launch(flag_kernel(1, U, B), ndir * (H / U),
+                                 flag_bwd_smem(B, H, U), args, stream);
+}
+
+// 1 the cluster kernels, 2 the flag design, 0 the cooperative kernels, -1
+// when the device cannot be queried; ``way`` 0 the forward, 1 the backward.
+int design_of(int B, int H, int ndir, int bf16, int way) {
+  if (cluster_takes(B, H, bf16)) return 1;
+  const int u = flag_units(B, H, ndir, bf16, way);
+  return u < 0 ? -1 : (u ? 2 : 0);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1354,13 +1895,22 @@ const char* lstm_error_string(int code) {
 }
 
 // The forward's and the backward's design at a shape: 1 the cluster
-// kernel, 0 the cooperative one (which alone reads ``hx`` and ``bar``).
-int lstm_fwd_design(int B, int H, int bf16) {
-  return cluster_takes(B, H, bf16) ? 1 : 0;
+// kernels, 2 the flag design, 0 the cooperative kernels (-1: the device
+// could not be queried).  Only the cooperative and the flag designs read
+// the scratch and the counters.
+int lstm_fwd_design(int B, int H, int ndir, int bf16) {
+  return design_of(B, H, ndir, bf16, 0);
 }
 
-int lstm_bwd_design(int B, int H, int bf16) {
-  return cluster_takes(B, H, bf16) ? 1 : 0;
+int lstm_bwd_design(int B, int H, int ndir, int bf16) {
+  return design_of(B, H, ndir, bf16, 1);
+}
+
+// The flag design's units a block at this shape on the current device for
+// the forward (way 0) or the backward (1), 0 where it does not take the
+// shape, -1 when the device cannot be queried.
+int lstm_flag_units(int B, int H, int ndir, int bf16, int way) {
+  return flag_units(B, H, ndir, bf16, way);
 }
 
 // How many clusters of the forward's or the backward's cluster kernel at
@@ -1398,6 +1948,14 @@ int lstm_fwd_scan(const void* xp, const void* whh, const float* bias,
         (P)xp, (P)whh, bias, lengths, (__nv_bfloat16*)y, c,
         (__nv_bfloat16*)g4, T, B, ndir, rev_mask, s);
   }
+  if (!bf16) {
+    const int u = flag_units(B, H, ndir, bf16, 0);
+    if (u < 0) return (int)cudaErrorInvalidDevice;
+    if (u)
+      return flag_fwd_launch(
+          u, (const float*)xp, (const float*)whh, bias, lengths, (float*)y, c,
+          (float*)g4, (float*)hx, bar, T, B, H, ndir, rev_mask, s);
+  }
   if (bf16)
     return fwd_launch<__nv_bfloat16>(
         (const __nv_bfloat16*)xp, (const __nv_bfloat16*)whh, bias, lengths,
@@ -1410,8 +1968,8 @@ int lstm_fwd_scan(const void* xp, const void* whh, const float* bias,
 
 int lstm_bwd_scan(const void* whh, const int* lengths, const float* c,
                   const void* g4, const void* gy, void* dxp, float* dbp,
-                  unsigned* bar, int T, int B, int H, int ndir, int rev_mask,
-                  int bf16, void* stream) {
+                  void* scratch, unsigned* bar, int T, int B, int H,
+                  int ndir, int rev_mask, int bf16, void* stream) {
   if (T == 0 || B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (cluster_takes(B, H, bf16)) {
@@ -1420,6 +1978,14 @@ int lstm_bwd_scan(const void* whh, const int* lengths, const float* c,
                           : cluster_bwd_launch<16>)(
         (P)whh, lengths, c, (P)g4, (P)gy, (__nv_bfloat16*)dxp, dbp, T, B,
         ndir, rev_mask, s);
+  }
+  if (!bf16) {
+    const int u = flag_units(B, H, ndir, bf16, 1);
+    if (u < 0) return (int)cudaErrorInvalidDevice;
+    if (u)
+      return flag_bwd_launch(
+          u, (const float*)whh, lengths, c, (const float*)g4, (const float*)gy,
+          (float*)dxp, dbp, (float*)scratch, bar, T, B, H, ndir, rev_mask, s);
   }
   if (bf16)
     return bwd_launch<__nv_bfloat16>(

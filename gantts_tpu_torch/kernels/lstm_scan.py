@@ -14,17 +14,23 @@ them on the card and what their design does about it):
                      the bias gradient (replaces ``_lstm_bwd_kernel`` and
                      ``_bilstm_bwd_kernel``).
 
-Two designs for each, chosen by shape in the launcher.  In bf16 with H of
-256 or 512 and B up to 24 (the training steps' shapes) each kernel runs one
+Three designs for each, chosen by shape in the launcher (``fwd_design``
+and ``bwd_design`` say which a shape takes).  In bf16 with H of 256 or 512
+and B up to 24 (the training steps' shapes) each kernel runs one
 thread-block cluster per direction, with its block's slice of W_hh in
 registers: the forward all-gathers each step's h_t, the backward
-reduce-scatters its partial products, through distributed shared memory
-(``fwd_design`` and ``bwd_design`` say which a shape takes).  Every other
-shape (f32 I/O, other H, larger B) takes a persistent cooperative launch: a
-direction's blocks exchange each step's activations through global memory
-and meet at a grid barrier, so every block must be resident at once, or the
-launch fails and the wrapper raises.  A cluster launch that fails raises
-too; nothing falls back to the other design.
+reduce-scatters its partial products, through distributed shared memory.
+In float32 where ``_flag_plan`` gives a plan (H of 256 to 512, B up to 24:
+the f32 paths' shapes) each direction is spread over H / U blocks of U
+units (the "flag" design), W_hh's slice in registers, the same all-gather
+and reduce-scatter through global scratch, each block releasing a step flag
+that the blocks needing its part poll; the wrapper allocates the scratch
+and zeroes the flags.  Every other shape (f32 the plan refuses, other H,
+larger B) takes a persistent cooperative launch: a direction's blocks
+exchange each step's activations through global memory and meet at a grid
+barrier.  The flag and the cooperative designs need every block resident at
+once, or the launch fails and the wrapper raises.  A cluster launch that
+fails raises too; nothing falls back to another design.
 
 The input projection, which the TPU kernels run inside their bodies, is the
 port's ``sru_proj_gemm`` (the counterpart of ``_proj_u``), one launch over
@@ -49,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -56,6 +63,7 @@ from gantts_tpu_torch.kernels.sru_scan import (
     IO_DTYPES,
     _on_cpu,
     _require,
+    _sm_count,
     _stream,
     io_dtype,
     launch_counts,
@@ -65,7 +73,66 @@ from gantts_tpu_torch.kernels.sru_scan import (
 )
 
 launch_counts.update(lstm_fwd_scan=0, lstm_bwd_scan=0)
-DESIGNS = ("cooperative", "cluster")
+DESIGNS = ("cooperative", "cluster", "flag")
+
+# The flag design's plan, as csrc/lstm_scan.cu's ``f32_flag_units``:
+# units a block, in order of preference, by way (kFUnits)
+FLAG_UNITS = {"fwd": (4, 8), "bwd": (8, 4)}
+FLAG_MAX_B = 24           # rows it takes (kFMaxB)
+FLAG_MAX_H = 512          # H it takes, at most (kFMaxH)
+FLAG_MIN_BLOCKS = 64      # blocks a direction, at least (kFMinBlocks)
+FLAG_SPLITS = 32          # the forward product's K splits (kFSplits)
+SMEM_LIMIT = 232448       # shared memory a block may use on Hopper
+FLAG_THREADS = 256        # threads a block (kThreads)
+
+
+class FlagPlan(NamedTuple):
+    """How a flag kernel cuts one layer: ``units`` hidden units a block
+    (the block's 4 * units gate columns of W_hh, all H rows, in registers
+    for the launch), ``blocks`` blocks a direction, ``grid`` blocks in all
+    (one an SM), and its shared memory a block."""
+    units: int
+    blocks: int
+    grid: int
+    smem: int
+
+
+def _pad4(B):
+    return -(-B // 4) * 4
+
+
+def _flag_plan(B, H, ndir, dtype, sm_count, way):
+    """The flag design's plan for ``lstm_{way}_scan`` (way "fwd" or "bwd")
+    at (B, H, ndir) in ``dtype`` on ``sm_count`` SMs, or None where the
+    cooperative design takes the shape: float32, 1 <= B <= FLAG_MAX_B,
+    H <= FLAG_MAX_H, and the first U of FLAG_UNITS[way] that divides H by
+    32 U (the threads' split of the products), gives at least
+    FLAG_MIN_BLOCKS blocks of U units a direction, puts every block of
+    every direction on its own SM, and fits the kernel's shared memory
+    (W_hh's slice lives in registers):
+
+      "fwd"  h_{t-1} H x Bp, the K splits' partial sums 32 x Bp x 5U,
+             the xp slots 2 x 256 x 4 (floats);
+      "bwd"  the partial-dh slices H x Bp, dgates_t 4U x Bp, the cell
+             input slots 2 x 2 x 256 x 4;
+
+    Bp is B rounded up to 4."""
+    if (dtype != torch.float32 or not 1 <= B <= FLAG_MAX_B
+            or not 1 <= H <= FLAG_MAX_H):
+        return None
+    bp = _pad4(B)
+    for U in FLAG_UNITS[way]:
+        nb = H // U
+        if H % (32 * U) or nb < FLAG_MIN_BLOCKS or ndir * nb > sm_count:
+            continue
+        if way == "fwd":
+            smem = 4 * (H * bp + FLAG_SPLITS * bp * 5 * U
+                        + 2 * 4 * FLAG_THREADS)
+        else:
+            smem = 4 * (H * bp + 4 * U * bp + 2 * 2 * 4 * FLAG_THREADS)
+        if smem <= SMEM_LIMIT:
+            return FlagPlan(U, nb, ndir * nb, smem)
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -163,32 +230,60 @@ def lstm_bwd_scan_plain(whh, lengths, c, g4, gy, reverse):
 def _lib():
     from gantts_tpu_torch.kernels._build import load_library
 
-    lib = load_library("lstm_scan")
+    return _bind(load_library("lstm_scan"))
+
+
+def _bind(lib):
+    """Sets the C signatures on ``lib``, a loaded build of lstm_scan.cu (the
+    package's, or a tool's patched copy), and returns it."""
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.lstm_error_string.argtypes = [I]
     lib.lstm_error_string.restype = ctypes.c_char_p
     lib.lstm_fwd_scan.argtypes = [P] * 9 + [I] * 6 + [P]
-    lib.lstm_bwd_scan.argtypes = [P] * 8 + [I] * 6 + [P]
+    lib.lstm_bwd_scan.argtypes = [P] * 9 + [I] * 6 + [P]
+    lib.lstm_flag_units.argtypes = [I, I, I, I, I]
     for way in ("fwd", "bwd"):
-        getattr(lib, f"lstm_{way}_design").argtypes = [I, I, I]
+        getattr(lib, f"lstm_{way}_design").argtypes = [I, I, I, I]
         getattr(lib, f"lstm_{way}_cluster_occupancy").argtypes = [I, P]
     for fn in (lib.lstm_fwd_scan, lib.lstm_bwd_scan, lib.lstm_fwd_design,
-               lib.lstm_bwd_design, lib.lstm_fwd_cluster_occupancy,
+               lib.lstm_bwd_design, lib.lstm_flag_units,
+               lib.lstm_fwd_cluster_occupancy,
                lib.lstm_bwd_cluster_occupancy):
         fn.restype = I
     return lib
 
 
-def fwd_design(B, H, dtype):
-    """The design ``lstm_fwd_scan``'s launcher takes at this shape:
-    "cluster" (bf16, H of 256 or 512, B up to 24) or "cooperative"."""
-    return DESIGNS[_lib().lstm_fwd_design(B, H, int(dtype == torch.bfloat16))]
+def _design(way, B, H, dtype, ndir):
+    code = getattr(_lib(), f"lstm_{way}_design")(
+        B, H, ndir, int(dtype == torch.bfloat16))
+    if code < 0:
+        raise RuntimeError(f"lstm_{way}_design: the device cannot be queried")
+    return DESIGNS[code]
 
 
-def bwd_design(B, H, dtype):
+def fwd_design(B, H, dtype, ndir=1):
+    """The design ``lstm_fwd_scan``'s launcher takes at this shape on the
+    current device: "cluster" (bf16, H of 256 or 512, B up to 24), "flag"
+    (float32 where ``_flag_plan`` gives a plan) or "cooperative"."""
+    return _design("fwd", B, H, dtype, ndir)
+
+
+def bwd_design(B, H, dtype, ndir=1):
     """The design ``lstm_bwd_scan``'s launcher takes at this shape, as
     ``fwd_design``."""
-    return DESIGNS[_lib().lstm_bwd_design(B, H, int(dtype == torch.bfloat16))]
+    return _design("bwd", B, H, dtype, ndir)
+
+
+def _checked_flag_plan(way, B, H, dtype, ndir, device):
+    """``_flag_plan`` on ``device``, held to the launcher's own rule."""
+    name = f"lstm_{way}_scan"
+    plan = _flag_plan(B, H, ndir, dtype, _sm_count(device.index), way)
+    units = _lib().lstm_flag_units(B, H, ndir, int(dtype == torch.bfloat16),
+                                   int(way == "bwd"))
+    if (plan.units if plan else 0) != units:
+        raise RuntimeError(f"{name}: the launcher plans {units} units a "
+                           f"block, _flag_plan {plan}")
+    return plan
 
 
 def _cluster_occupancy(name, H):
@@ -246,9 +341,14 @@ def lstm_fwd_scan(xp, whh, bias, lengths, reverse):
     c = torch.empty((T, B, ndir * H), dtype=torch.float32, device=dev)
     g4 = torch.empty((T, B, ndir * 4 * H), dtype=xp.dtype, device=dev)
     hx = bar = None
-    if fwd_design(B, H, xp.dtype) == "cooperative":
+    design = fwd_design(B, H, xp.dtype, ndir)
+    if design == "cooperative":
         hx = torch.empty((2, ndir, B, H), dtype=xp.dtype, device=dev)
         bar = torch.zeros(ndir, dtype=torch.int32, device=dev)
+    elif design == "flag":  # h by step parity, [H][Bp]; a flag a block
+        plan = _checked_flag_plan("fwd", B, H, xp.dtype, ndir, dev)
+        hx = torch.empty((2, ndir, H, _pad4(B)), dtype=xp.dtype, device=dev)
+        bar = torch.zeros(plan.grid, dtype=torch.int32, device=dev)
     _launched(name, _lib().lstm_fwd_scan(
         xp.data_ptr(), whh.data_ptr(), bias.data_ptr(), lengths.data_ptr(),
         y.data_ptr(), c.data_ptr(), g4.data_ptr(),
@@ -276,12 +376,19 @@ def lstm_bwd_scan(whh, lengths, c, g4, gy, reverse):
     _require(name, gy, "gy", dev, (g4.dtype,), (T, B, ndir * H))
     dxp = torch.empty((T, B, ndir * 4 * H), dtype=g4.dtype, device=dev)
     dbp = torch.empty((B, ndir * 4 * H), dtype=torch.float32, device=dev)
-    design = bwd_design(B, H, g4.dtype)
-    bar = (torch.zeros(ndir, dtype=torch.int32, device=dev)
-           if design == "cooperative" else None)
+    px = bar = None
+    design = bwd_design(B, H, g4.dtype, ndir)
+    if design == "cooperative":
+        bar = torch.zeros(ndir, dtype=torch.int32, device=dev)
+    elif design == "flag":  # each block's partial dh by step parity
+        plan = _checked_flag_plan("bwd", B, H, g4.dtype, ndir, dev)
+        px = torch.empty((2, ndir, plan.blocks, _pad4(B), H),
+                         dtype=torch.float32, device=dev)
+        bar = torch.zeros(plan.grid, dtype=torch.int32, device=dev)
     _launched(name, _lib().lstm_bwd_scan(
         whh.data_ptr(), lengths.data_ptr(), c.data_ptr(), g4.data_ptr(),
         gy.data_ptr(), dxp.data_ptr(), dbp.data_ptr(),
+        None if px is None else px.data_ptr(),
         None if bar is None else bar.data_ptr(),
         T, B, H, ndir, mask, int(g4.dtype == torch.bfloat16), _stream(dev)))
     return dxp, dbp.sum(0).reshape(ndir, 4 * H)

@@ -441,12 +441,13 @@ def test_lstm_bwd_cluster_kernel(cuda, reverse, Tn, Bn, Hn):
     assert torch.equal(dxp_2, dxp_k) and torch.equal(db_2, db_k)
 
 
-@pytest.mark.parametrize("dt,Bn,Hn", [(torch.float32, 20, 512),
+@pytest.mark.parametrize("dt,Bn,Hn", [(torch.float32, 20, 64),
                                       (torch.bfloat16, 3, 9),
                                       (torch.bfloat16, 25, 256)])
 def test_lstm_bwd_takes_the_cooperative_kernel_by_shape(cuda, dt, Bn, Hn):
-    """f32 I/O, an H the cluster layout does not divide, and a B above its
-    24 rows take the cooperative kernel, and it still agrees."""
+    """An f32 H too small for the flag design (phase 5's 64), an H the
+    cluster layout does not divide, and a B above its 24 rows take the
+    cooperative kernel, and it still agrees."""
     from gantts_tpu_torch.kernels import lstm_scan as L
 
     reverse = (False, True)
@@ -463,12 +464,12 @@ def test_lstm_bwd_takes_the_cooperative_kernel_by_shape(cuda, dt, Bn, Hn):
 
 def test_lstm_bwd_step_shape_takes_the_cluster_kernel(cuda):
     """The training steps' bf16 shape (B=20, H=512) takes the cluster
-    kernel, and two of its 16-block clusters (one per direction) fit on the
-    card at once."""
+    kernel (f32 the flag design), and two of its 16-block clusters (one per
+    direction) fit on the card at once."""
     from gantts_tpu_torch.kernels import lstm_scan as L
 
     assert L.bwd_design(20, 512, torch.bfloat16) == "cluster"
-    assert L.bwd_design(20, 512, torch.float32) == "cooperative"
+    assert L.bwd_design(20, 512, torch.float32) == "flag"
     assert L.bwd_cluster_occupancy(512) >= 2
     assert L.bwd_cluster_occupancy(256) >= 2
 
@@ -502,12 +503,13 @@ def test_lstm_fwd_cluster_kernel(cuda, reverse, Tn, Bn, Hn):
     assert torch.equal(g4_2, g4_k)
 
 
-@pytest.mark.parametrize("dt,Bn,Hn", [(torch.float32, 20, 512),
+@pytest.mark.parametrize("dt,Bn,Hn", [(torch.float32, 20, 64),
                                       (torch.bfloat16, 3, 9),
                                       (torch.bfloat16, 25, 256)])
 def test_lstm_fwd_takes_the_cooperative_kernel_by_shape(cuda, dt, Bn, Hn):
-    """f32 I/O, an H the cluster layout does not divide, and a B above its
-    24 rows take the cooperative forward, and it still agrees."""
+    """An f32 H too small for the flag design (phase 5's 64), an H the
+    cluster layout does not divide, and a B above its 24 rows take the
+    cooperative forward, and it still agrees."""
     from gantts_tpu_torch.kernels import lstm_scan as L
 
     reverse = (False, True)
@@ -526,14 +528,92 @@ def test_lstm_fwd_takes_the_cooperative_kernel_by_shape(cuda, dt, Bn, Hn):
 
 def test_lstm_fwd_step_shape_takes_the_cluster_kernel(cuda):
     """The training steps' bf16 shape (B=20, H=512) takes the forward's
-    cluster kernel too, and two of its 16-block clusters (one per
-    direction) fit on the card at once."""
+    cluster kernel too (f32 the flag design), and two of its 16-block
+    clusters (one per direction) fit on the card at once."""
     from gantts_tpu_torch.kernels import lstm_scan as L
 
     assert L.fwd_design(20, 512, torch.bfloat16) == "cluster"
-    assert L.fwd_design(20, 512, torch.float32) == "cooperative"
+    assert L.fwd_design(20, 512, torch.float32) == "flag"
     assert L.fwd_cluster_occupancy(512) >= 2
     assert L.fwd_cluster_occupancy(256) >= 2
+
+
+# The f32 flag design (H / U blocks a direction, per-block step flags):
+# limits of chip_smoke.py phase 3, 1e-5 of scale for every output.
+FLAG_TOL = 1e-5
+FLAG_LENGTHS = {1: [37], 3: [64, 0, 17],
+                20: [64, 0, 33, 0, 0, 5, 64, 12, 1, 0, 50, 64, 2, 0, 40, 7,
+                     0, 63, 28, 0]}
+
+
+def _flag_case(dev, reverse, Bn, Tn=64, Hn=512):
+    """Inputs at Tn x Bn x Hn with FLAG_LENGTHS' rows (zero-length rows
+    among them), and c, g4 from the plain forward."""
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    xp, whh, bias, _, gy = _lstm_inputs(dev, torch.float32, len(reverse),
+                                        Tn, Bn, Hn, seed=Bn)
+    lengths = torch.tensor(FLAG_LENGTHS[Bn], dtype=torch.int32, device=dev)
+    return xp, whh, bias, lengths, gy
+
+
+@pytest.mark.parametrize("reverse", LSTM_CASES)
+@pytest.mark.parametrize("Bn", [1, 3, 20])
+def test_lstm_flag_kernels(cuda, reverse, Bn):
+    """The f32 flag design at T=64, H=512 (one direction: 128 blocks of 4
+    units; two: 64 a direction of 8), B of 1, 3 and 20 with zero-length
+    rows, against the plain versions; padded frames exactly 0; the trace
+    names both flag kernels; the same inputs again give the same bits (the
+    partial sums are added in a fixed order)."""
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    xp, whh, bias, lengths, gy = _flag_case(cuda, reverse, Bn)
+    nd = len(reverse)
+    assert L.fwd_design(Bn, 512, torch.float32, nd) == "flag"
+    assert L.bwd_design(Bn, 512, torch.float32, nd) == "flag"
+    y_p, c_p, g4_p = L.lstm_fwd_scan_plain(xp, whh, bias, lengths, reverse)
+    dxp_p, db_p = L.lstm_bwd_scan_plain(whh, lengths, c_p, g4_p, gy, reverse)
+
+    def both():
+        return (L.lstm_fwd_scan(xp, whh, bias, lengths, reverse),
+                L.lstm_bwd_scan(whh, lengths, c_p, g4_p, gy, reverse))
+    ((y_k, c_k, g4_k), (dxp_k, db_k)), names = _traced(both)
+    assert any("lstm_fwd_flag_kernel" in n for n in names), names
+    assert any("lstm_bwd_flag_kernel" in n for n in names), names
+    (y_2, c_2, g4_2), (dxp_2, db_2) = both()
+    torch.cuda.synchronize()
+    for got, ref in ((y_k, y_p), (c_k, c_p), (g4_k, g4_p), (dxp_k, dxp_p),
+                     (db_k, db_p)):
+        assert _rel(got, ref) <= FLAG_TOL
+    pad = torch.arange(64, device=cuda)[:, None] >= lengths[None, :]
+    assert (y_k[pad] == 0).all() and (dxp_k[pad] == 0).all()
+    for a, b in ((y_2, y_k), (c_2, c_k), (g4_2, g4_k), (dxp_2, dxp_k),
+                 (db_2, db_k)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("Bn,Hn,nd", [(1, 512, 1), (20, 512, 1),
+                                      (20, 512, 2), (24, 512, 2),
+                                      (25, 512, 1), (20, 64, 1),
+                                      (3, 9, 2), (20, 256, 2),
+                                      (20, 1024, 1)])
+def test_lstm_flag_plan_is_the_launchers(cuda, Bn, Hn, nd):
+    """kernels/lstm_scan.py's ``_flag_plan`` on this card is the plan the
+    launcher takes (its units a block), and the designs follow it: f32
+    takes the flag design where there is a plan, the cooperative kernels
+    where there is none, and the refused shapes still run there."""
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    f32 = torch.float32
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for i, way in enumerate(("fwd", "bwd")):
+        plan = L._flag_plan(Bn, Hn, nd, f32, sms, way)
+        assert L._lib().lstm_flag_units(Bn, Hn, nd, 0, i) == (
+            plan.units if plan else 0)
+        want = "flag" if plan else "cooperative"
+        assert getattr(L, f"{way}_design")(Bn, Hn, f32, nd) == want
+        assert (plan is not None) == ((Bn, Hn) in ((1, 512), (20, 512),
+                                                   (24, 512), (20, 256)))
 
 
 @pytest.mark.parametrize("bidirectional", [True, False])
@@ -813,7 +893,7 @@ def test_one_direction_lstm_kernels_at_the_vc_shapes(cuda, dt, reverse):
     """K = 177 (the wrapper copies bf16 x into rows 184 wide), B = 20,
     H = 512, one direction: the GEMM and both scans against their plain
     versions, the scans fed the kernel GEMM's own xp; bf16 takes the
-    cluster kernels, f32 the cooperative ones."""
+    cluster kernels, f32 the flag design."""
     from gantts_tpu_torch.kernels import lstm_scan as L
 
     Tn, Bn, Hn = 96, 20, 512
@@ -824,7 +904,7 @@ def test_one_direction_lstm_kernels_at_the_vc_shapes(cuda, dt, reverse):
                         dtype=dt, device=cuda)
     _, whh, bias, lengths, gy = _lstm_inputs(cuda, dt, 1, Tn, Bn, Hn)
     assert L.fwd_design(Bn, Hn, dt) == L.bwd_design(Bn, Hn, dt) == (
-        "cluster" if dt == torch.bfloat16 else "cooperative")
+        "cluster" if dt == torch.bfloat16 else "flag")
     L.reset_launch_counts()
     xp = L.sru_proj_gemm(x2, w_ih)
     assert _rel(xp, K.sru_proj_gemm_plain(x2, w_ih)) < TOL[dt]

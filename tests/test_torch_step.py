@@ -191,13 +191,21 @@ def _step_both(optimizer, compute_dtype, hp_fn, batch_fn):
 
 
 def _check_outputs(jout, out, n_frames):
+    """Every output within 1e-5 of the JAX step's, but where a V/UV
+    decision flipped: vuv_err then differs by at most one frame's share,
+    and f0_rmse, taken over other frames, is excused.  An f0_rmse gap with
+    vuv_err equal on both sides is a fault."""
     assert set(out) == set(jout)
+    flipped = "vuv_err" in jout and abs(
+        float(out["vuv_err"]) - float(jout["vuv_err"])) > 1e-5 * abs(
+            float(jout["vuv_err"]))
     for k in jout:
         a, b = float(out[k]), float(jout[k])
         assert np.isfinite(b), k
-        if k in ("vuv_err", "f0_rmse") and abs(a - b) > 1e-5 * abs(b):
-            # a V/UV decision flipped: at most one frame's share apart
-            assert k == "f0_rmse" or abs(a - b) <= 1.0 / n_frames + 1e-6, k
+        if flipped and k == "vuv_err":
+            assert abs(a - b) <= 1.0 / n_frames + 1e-6, k
+            continue
+        if flipped and k == "f0_rmse":
             continue
         assert abs(a - b) <= 1e-5 * max(abs(b), 1e-3), (k, a, b)
 
