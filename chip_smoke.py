@@ -5,6 +5,9 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
+(``chip_smoke.py --counted OUT MODULE ARGS...`` is phase 11's helper: it
+runs one command line in a process of its own and writes its launches.)
+
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
   1. device: require CUDA, print the card's name and power limit;
@@ -57,7 +60,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      step in the bundle's own float32: (4)'s 6x512 bidirectional SRU, the
      f32 kernels (sru_proj_gemm's FMA kernel, 12 launches a step); (4h)
      the vc step of (4e) in the bundle's own float32: the f32 GEMM and the
-     flag design's LSTM scans, 3 + 3 + 3 launches a step;
+     flag design's LSTM scans, 3 + 3 + 3 launches a step; (4g) and (4h)
+     also time rounds of their steps without and with what --debug-nans
+     adds to a step (the optimizers' finite-norm check and the read of
+     the step's losses), alternating;
   5. one small float32 step on the card against the same step on the CPU
      (where every kernel wrapper takes its plain version), same weights,
      and the same step on the card with TF32 matmuls as a control that the
@@ -68,8 +74,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      In2OutRNNHighwayNet (MLPG inside the generator);
   6. the port's training command line (gantts_tpu_torch.train) on a
      synthetic acoustic corpus written by the port's own code: two epochs
-     of (4c)'s configuration, then a second stage resumed from both
-     checkpoints for one more epoch;
+     of (4c)'s configuration with --profile-dir (one Chrome trace of epoch
+     2, which must name sru_proj_gemm, sru_fwd_scan and sru_bwd_scan),
+     then a second stage resumed from both checkpoints for one more epoch,
+     without and with --debug-nans (which must run clean; both walls
+     printed);
   7. the port's curriculum command (gantts_tpu_torch.curriculum, the
      counterpart of train_gan.sh) with the full-width tts_duration bundle
      on a synthetic phone-level corpus: stages 1-3 and 5, one or two epochs
@@ -93,7 +102,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      adversarial generators and without the duration model: launches per
      step and per utterance, the wavs and analysis.json, the seconds an
      utterance takes, and the first utterance's predictions of both models
-     against CPU copies of the generators.
+     against CPU copies of the generators;
+ 11. the JAX package's checkpoint files, at full width in float32: the
+     card's machine has no JAX, so the phase writes them from phases 8 and
+     10's checkpoints (convert.torch_to_flax, the inverse optax map,
+     flax_msgpack.packb; the CPU tests hold those bytes to the JAX
+     package's own) and prints how long reading each takes beside the
+     .pth; full-width states restored from both formats must hold the same
+     bits; (11a) epoch 3 of the tts_acoustic and vc adversarial stages,
+     each resumed from the .pth files and from their JAX twins in a
+     process of its own (this script's --counted mode runs the module as
+     python -m does, under the launch counters), must launch the kernels
+     their steps need, log the same values and write the same checkpoints,
+     bit for bit, and no logged value but f0_rmse may be other than
+     finite; the tts stage also runs on from epoch 1 to 3 in one process,
+     as the resumes' control, and where tts epoch 3's test f0_rmse is not
+     finite, the test phase is recomputed from the written generator and
+     must show why: a batch without a frame both it and the data call
+     voiced, or a predicted log-F0 whose exp overflows float32; (11b) evaluation_tts and evaluation_vc on both
+     formats, over the 7 shortest utterances (1 eval, 5 test), must write
+     the same files; (11c) a legacy pickle checkpoint is refused by -g
+     and, given to --checkpoint-r, warned about while the stage trains on.
 
 Each of (4) to (4h) ends with a torch.profiler trace of a few more
 of its steps, which prints where the device time goes and the idle share
@@ -1361,12 +1390,50 @@ def phase_main_path(dev, card, tag, hp, per_step, n_expected, make_batch,
           f"{fps:.1f} valid {unit}/s, "
           f"peak memory {peak} bytes ({peak / 2**30:.3f} GiB)  [{card}]")
 
-    def run_steps(n):
+    def run_steps(n, debug_nans=False):
+        """n more steps; with ``debug_nans``, with what the training loop's
+        debug_nans adds to each: the optimizers' finite-norm check and the
+        read and check of the step's losses."""
+        from gantts_tpu_torch.train.loop import _require_finite_losses
+
         nonlocal gstate, dstate
-        for _ in range(n):
-            gstate, dstate, _ = trainer.step(gstate, dstate, x, y, lengths,
-                                             R, 1.0, gen)
+        for state, name in ((gstate, "generator"), (dstate, "discriminator")):
+            state.optimizer.check_finite = name if debug_nans else None
+        for i in range(n):
+            gstate, dstate, out = trainer.step(gstate, dstate, x, y, lengths,
+                                               R, 1.0, gen)
+            if debug_nans:
+                _require_finite_losses(out, f"step {tag}, batch {i}")
     return counts, ms, run_steps
+
+
+DEBUG_NANS_PATHS = ("4g", "4h")  # the f32 steps phase 11 resumes
+DEBUG_NANS_ROUNDS = 3
+
+
+def debug_nans_cost(tag, card, run_steps):
+    """What --debug-nans adds to a step of a phase 4 path: DEBUG_NANS_ROUNDS
+    rounds of STEPS timed steps without it, then with it (run_steps).
+    Prints each round's ms/step and the median of the rounds' ratios."""
+    rounds = []
+    try:
+        for _ in range(DEBUG_NANS_ROUNDS):
+            ms = []
+            for on in (False, True):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run_steps(STEPS, debug_nans=on)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) / STEPS * 1e3)
+            rounds.append(ms)
+    finally:
+        run_steps(0)  # the checks off again
+    ratios = sorted(b / a for a, b in rounds)
+    print(f"[{tag}] --debug-nans, ms/step without and with, "
+          f"{DEBUG_NANS_ROUNDS} rounds of {STEPS} steps: "
+          + "; ".join(f"{a:.3f}, {b:.3f}" for a, b in rounds)
+          + f"; median cost {100 * (ratios[len(ratios) // 2] - 1):+.2f}%"
+          f"  [{card}]")
 
 
 def _union_us(intervals):
@@ -1673,12 +1740,16 @@ def phase_cli(card):
     """Phase 6: ``python -m gantts_tpu_torch.train``'s main() on a synthetic
     corpus of 30 utterances (200-512 frames, 425 -> 187 dims) in a
     temporary directory: two epochs of (4c)'s configuration (the 6x512
-    unidirectional relu SRU, bf16 matmuls, w_d = 1), then a second stage
-    from both checkpoints for one more epoch.  Checks the checkpoints, that
-    every logged value is finite and that each stage launched the k=3
-    kernels as often as its steps require; prints each phase's valid
-    frames/s.  The command line's own output goes to a log, whose tail is
-    printed if it fails.  Returns the launch counts of both stages."""
+    unidirectional relu SRU, bf16 matmuls, w_d = 1) with ``--profile-dir``,
+    then a second stage from both checkpoints for one more epoch, without
+    and with ``--debug-nans`` (into separate directories).  Checks the
+    checkpoints, that every logged value is finite, that each stage
+    launched the k=3 kernels as often as its steps require, that the
+    profile is one Chrome trace of epoch 2 naming the SRU kernels
+    (check_profile), and that the run with ``--debug-nans`` ran clean;
+    prints each phase's valid frames/s and both resumed stages' wall times.
+    The command line's own output goes to a log, whose tail is printed if
+    it fails.  Returns the launch counts of all three stages."""
     from gantts_tpu_torch import hparams
     from gantts_tpu_torch.data import NPYDataSource
     from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1691,19 +1762,24 @@ def phase_cli(card):
         xdir, ydir = (os.path.join(tmp, d) for d in ("X_acoustic",
                                                      "Y_acoustic"))
         ck, log = os.path.join(tmp, "ck"), os.path.join(tmp, "log")
+        prof = os.path.join(tmp, "prof")
         n_steps = {phase: -(-len(NPYDataSource(xdir, train=phase == "train")
                                  .collect_files()) // 20)
                    for phase in ("train", "test")}
-        stages = [(2, []), (3, [
-            f"--checkpoint-g={ck}/checkpoint_epoch2_Generator.pth",
-            f"--checkpoint-d={ck}/checkpoint_epoch2_Discriminator.pth"])]
-        for nepoch, extra in stages:
+        resume = [f"--checkpoint-g={ck}/checkpoint_epoch2_Generator.pth",
+                  f"--checkpoint-d={ck}/checkpoint_epoch2_Discriminator.pth"]
+        stages = [("2", 2, ck, log, [f"--profile-dir={prof}"]),
+                  ("3", 3, ck, log, resume),
+                  ("3 --debug-nans", 3, os.path.join(tmp, "ck_dn"),
+                   os.path.join(tmp, "log_dn"), resume + ["--debug-nans"])]
+        walls = {}
+        for tag, nepoch, ck_dir, log_dir, extra in stages:
             argv = [xdir, ydir, "--hparams_name=tts_acoustic",
                     f"--hparams=nepoch={nepoch},compute_dtype=bfloat16,"
                     f"generator_params={gp!r}", "--w_d=1",
-                    f"--checkpoint-dir={ck}", f"--log-event-path={log}",
-                    "--disable-slack", *extra]
-            out_path = os.path.join(tmp, f"stage{nepoch}.out")
+                    f"--checkpoint-dir={ck_dir}",
+                    f"--log-event-path={log_dir}", "--disable-slack", *extra]
+            out_path = os.path.join(tmp, f"stage{nepoch}_{len(walls)}.out")
             reset_launch_counts()
             t0 = time.perf_counter()
             with open(out_path, "w") as out:
@@ -1717,29 +1793,37 @@ def phase_cli(card):
                         print("".join(f.readlines()[-40:]))
                     raise
             torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
+            dt = walls[tag] = time.perf_counter() - t0
             counts = dict(launch_counts)
             epochs = 2 if nepoch == 2 else 1
             want = {"linear_recurrence_fwd":
                     5 * epochs * (n_steps["train"] + n_steps["test"]),
                     "linear_recurrence_bwd": 5 * epochs * n_steps["train"]}
-            print(f"[6] stage to epoch {nepoch}: exit {rc}, {dt:.2f} s, "
+            print(f"[6] stage to epoch {tag}: exit {rc}, {dt:.2f} s, "
                   f"launches {counts}")
             if rc != 0:
                 fail(f"the training command line exited {rc}")
             for k, n in want.items():
                 if counts[k] != n:
-                    fail(f"stage to epoch {nepoch}: {k} launched "
+                    fail(f"stage to epoch {tag}: {k} launched "
                          f"{counts[k]} times, its steps need {n}")
             for k, n in counts.items():
                 totals[k] = totals.get(k, 0) + n
             for name in ("Generator", "Discriminator"):
-                path = os.path.join(ck, f"checkpoint_epoch{nepoch}_"
+                path = os.path.join(ck_dir, f"checkpoint_epoch{nepoch}_"
                                     f"{name}.pth")
                 if not os.path.exists(path):
                     fail(f"no checkpoint {os.path.basename(path)}")
+        check_profile(prof, card)
+        print(f"[6] the resumed stage: {walls['3']:.2f} s, with --debug-nans "
+              f"{walls['3 --debug-nans']:.2f} s (ran clean)  [{card}]")
+        with open(os.path.join(tmp, "log_dn", "scalars.jsonl")) as f:
+            rows_dn = [json.loads(line) for line in f]
         with open(os.path.join(log, "scalars.jsonl")) as f:
             rows = [json.loads(line) for line in f]
+    if not rows_dn or not all(math.isfinite(r["value"]) for r in rows_dn):
+        fail("the stage with --debug-nans logged nothing, or values that "
+             "are not finite")
     bad = [r for r in rows if not math.isfinite(r["value"])]
     if bad or {r["step"] for r in rows} != {1, 2, 3}:
         fail(f"logged series: {len(bad)} values not finite ({bad[:3]}), "
@@ -1751,6 +1835,28 @@ def phase_cli(card):
     print(f"[6] {len(rows)} logged values, all finite; "
           f"{len({r['tag'] for r in rows})} series")
     return totals
+
+
+def check_profile(prof, card):
+    """Phase 6's ``--profile-dir``: one Chrome trace, of epoch 2, whose
+    device events name the SRU kernels the configuration launches."""
+    written = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+    if written != ["trace_epoch2.json"]:
+        fail(f"--profile-dir wrote {written}, expected trace_epoch2.json")
+    path = os.path.join(prof, written[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e.get("name", "") for e in events
+               if e.get("cat") == "kernel"}
+    named = {g: any(k in n.lower() for n in kernels for k in keys)
+             for g, keys in KERNEL_GROUPS
+             if g in ("sru_proj_gemm", "sru_fwd_scan", "sru_bwd_scan",
+                      "linear_recurrence_fwd", "linear_recurrence_bwd")}
+    print(f"[6] --profile-dir: {written[0]}, {os.path.getsize(path)} bytes, "
+          f"{len(events)} events, {len(kernels)} kernel names; the port's "
+          f"kernels named: {named}  [{card}]")
+    if not all(named.values()):
+        fail(f"the profile's kernels do not name {named}")
 
 
 def write_duration_corpus(dst, num=96, phones=(20, 81), seed=0):
@@ -2498,6 +2604,674 @@ def phase_tts_demo(card, tmp):
     return totals
 
 
+# Phase 11: the JAX package's checkpoint files on the card
+RESUMES = (  # tag, hparams name, spec, corpus dirs, checkpoints, reference D
+    ("tts", "tts_acoustic", "compute_dtype=float32",
+     ("feats/X_acoustic", "feats/Y_acoustic"), "ck_acoustic/gan", None),
+    ("vc", "vc", "generator=In2OutRNNHighwayNet", ("X", "Y"), "ck/gan",
+     "ck/spoofing_model/checkpoint_epoch2_Discriminator.pth"))
+DUR_SPEC = "compute_dtype=float32"  # phase 10's tts_duration
+EVAL_UTTERANCES = 7  # the split's least: 1 eval and the 5 held-out test
+
+
+def write_jax_twin(pth, name, params_dict):
+    """The JAX package's file for a ``.pth`` of the port: its parameters
+    by ``convert.torch_to_flax``, its optimizer by the inverse of the optax
+    map, laid out as the JAX package's save_checkpoint lays them out and
+    encoded by ``flax_msgpack.packb``, beside it as ``<stem>_jax.pth``."""
+    from gantts_tpu_torch.train import checkpoint as ckpt
+    from gantts_tpu_torch.train.flax_msgpack import packb
+
+    payload = torch.load(pth, map_location="cpu", weights_only=True)
+    out = pth[:-len(".pth")] + "_jax.pth"
+    with open(out, "wb") as f:
+        f.write(packb(ckpt.jax_payload(payload, name, params_dict)))
+    return out
+
+
+def write_legacy_pickle(path):
+    """A checkpoint in the JAX package's legacy pickle format."""
+    import pickle
+
+    with open(path, "wb") as f:
+        pickle.dump({"state_dict": {}, "optimizer": None, "global_epoch": 0},
+                    f, protocol=4)
+    return path
+
+
+@contextlib.contextmanager
+def quiet():
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        yield
+
+
+def read_times(card, files):
+    """Seconds ``load_checkpoint`` takes on each full-width file in both
+    formats (best of 3); ``files``: {label: (.pth, JAX twin)}."""
+    from gantts_tpu_torch.train.checkpoint import load_checkpoint
+
+    for label, (pth, twin) in files.items():
+        secs = []
+        for path in (pth, twin):
+            best = math.inf
+            for _ in range(3):
+                t0 = time.perf_counter()
+                with quiet():
+                    load_checkpoint(path)
+                best = min(best, time.perf_counter() - t0)
+            secs.append(best)
+        mb = [os.path.getsize(p) / 2 ** 20 for p in (pth, twin)]
+        print(f"[11] read the {label}: torch.save {secs[0]:.4f} s "
+              f"({mb[0]:.1f} MiB), JAX format {secs[1]:.4f} s "
+              f"({mb[1]:.1f} MiB)  [{card}]")
+
+
+def require_same_states(what, a, b):
+    """Two TrainStates (or two checkpoint payloads) hold the same bits:
+    every parameter, every optimizer tensor, and the learning rate as torch
+    applies it (cast to the float32 of the parameters it updates)."""
+    sa, sb = a["state_dict"], b["state_dict"]
+    if list(sa) != list(sb):
+        fail(f"{what}: parameter names differ")
+    for k, v in sa.items():
+        if not torch.equal(v, sb[k]):
+            fail(f"{what}: parameter {k} differs")
+    oa, ob = a["optimizer"], b["optimizer"]
+    if set(oa["state"]) != set(ob["state"]):
+        fail(f"{what}: optimizer state indices differ")
+    n = 0
+    for i, st in oa["state"].items():
+        for k, v in st.items():
+            if not torch.equal(v, ob["state"][i][k]):
+                fail(f"{what}: optimizer {k} of parameter {i} differs")
+            n += v.numel()
+    for ga, gb in zip(oa["param_groups"], ob["param_groups"]):
+        la, lb = (torch.tensor(g["lr"], dtype=torch.float32)
+                  for g in (ga, gb))
+        if not torch.equal(la, lb):
+            fail(f"{what}: lr {ga['lr']!r} and {gb['lr']!r} differ in "
+                 f"float32")
+    return sum(v.numel() for v in sa.values()), n
+
+
+def check_restored(card, tag, hp, dev, files):
+    """Full-width states on the card restored from each .pth and from its
+    JAX twin: the same bits (require_same_states)."""
+    from gantts_tpu_torch.train.checkpoint import restore
+    from gantts_tpu_torch.train.setup import init_models_and_states
+
+    got = []
+    for i in (0, 1):
+        _, _, _, _, g, d = init_models_and_states(hp, device=dev)
+        with quiet():
+            for state, name in ((g, "Generator"), (d, "Discriminator")):
+                restore(state, files[name][i])
+        got.append({name: {"state_dict": s.model.state_dict(),
+                           "optimizer": s.optimizer.state_dict()}
+                    for s, name in ((g, "Generator"), (d, "Discriminator"))})
+    for name in ("Generator", "Discriminator"):
+        n_params, n_opt = require_same_states(
+            f"{tag} {name} restored", got[0][name], got[1][name])
+        steps = {float(st.get("step", -1))
+                 for st in got[1][name]["optimizer"]["state"].values()}
+        lr = got[1][name]["optimizer"]["param_groups"][0]["lr"]
+        print(f"[11a] {tag} {name}: restored from the JAX file on the card "
+              f"bit for bit as from the .pth: {n_params} parameters, "
+              f"{n_opt} optimizer values (step {sorted(steps)}, lr {lr!r})")
+
+
+def run_counted(argv):
+    """``chip_smoke.py --counted OUT MODULE ARGS...``: run MODULE with ARGS
+    as ``python -m`` runs it (runpy), with every plain version refused,
+    and write to OUT as JSON its exit code, its kernel launches, when it
+    started (after Python and torch were imported) and its seconds."""
+    import runpy
+
+    from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    started, t0 = time.time(), time.perf_counter()
+    out, module, *args = argv
+    sys.argv = [module, *args]
+    reset_launch_counts()
+    rc = 0
+    with plain_versions_forbidden():
+        try:
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            rc = 0 if e.code is None else (e.code if isinstance(e.code, int)
+                                           else 1)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    with open(out, "w") as f:
+        json.dump({"rc": rc, "launches": dict(launch_counts),
+                   "started": started, "seconds": time.perf_counter() - t0},
+                  f)
+    return rc
+
+
+def start_cli_process(argv, log_path, module="gantts_tpu_torch.train"):
+    """Start ``python -m <module>`` on ``argv`` in a process of its own,
+    under this script's --counted mode, its output to ``log_path`` (.out,
+    .err; its counts to .json)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(log_path + ".out", "w") as out, \
+            open(log_path + ".err", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"), "--counted",
+             log_path + ".json", module, *argv], cwd=here,
+            stdout=out, stderr=err), time.time()
+
+
+def finish_cli_process(tag, job, log_path):
+    """Wait for a started process.  Returns its launches, its wall
+    seconds, the seconds before its command line started (Python and
+    torch imported) and its standard error."""
+    proc, t0 = job
+    rc = proc.wait(timeout=900)
+    secs = time.time() - t0
+    with open(log_path + ".err") as f:
+        err = f.read()
+    if rc != 0:
+        with open(log_path + ".out") as f:
+            print("".join(f.readlines()[-40:]), err[-3000:])
+        fail(f"[11] {tag}: the command line exited {rc}")
+    with open(log_path + ".json") as f:
+        counted = json.load(f)
+    return counted["launches"], secs, counted["started"] - t0, err
+
+
+def scalar_rows(ck):
+    with open(os.path.join(ck, "log", "scalars.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+FORMATS = ("torch.save", "JAX format")
+
+
+def start_resume_pair(tmp, tag, hp_name, spec, dirs, files, ref):
+    """Phase 11a: start epoch 3 of a curriculum's adversarial stage twice,
+    each in a process of its own, from the .pth checkpoints and from their
+    JAX twins (``--checkpoint-r`` the reference discriminator in the same
+    format).  Returns the started jobs: (format, checkpoint dir, job, log
+    path) each."""
+    xdir, ydir = (os.path.join(tmp, d) for d in dirs)
+    jobs = []
+    for i, fmt in enumerate(FORMATS):
+        ck = os.path.join(tmp, f"resume_{i}")
+        argv = [xdir, ydir, f"--hparams_name={hp_name}",
+                f"--hparams={spec},nepoch=3", f"--checkpoint-dir={ck}",
+                f"--checkpoint-g={files['Generator'][i]}",
+                f"--checkpoint-d={files['Discriminator'][i]}",
+                f"--log-event-path={ck}/log", "--w_d=1.0", "--disable-slack"]
+        if ref is not None:
+            argv.append(f"--checkpoint-r={ref[i]}")
+        log = os.path.join(tmp, f"resume_{i}")
+        jobs.append((fmt, ck, start_cli_process(argv, log), log))
+    return jobs
+
+
+def check_resume_pair(card, tag, jobs, n_steps, per_step, per_train_step,
+                      ref):
+    """Phase 11a's checks of a pair started by start_resume_pair: both
+    launch the kernels their steps need, log the same values and write the
+    same checkpoints, bit for bit; every logged loss is finite.  Returns
+    the launch counts of both."""
+    want = {k: n * (n_steps["train"] + n_steps["test"])
+            for k, n in per_step.items()}
+    want.update({k: n * n_steps["train"] for k, n in per_train_step.items()})
+    runs, totals = [], {}
+    for fmt, ck, job, log in jobs:
+        counts, secs, startup, _ = finish_cli_process(f"{tag} {fmt}", job,
+                                                       log)
+        for k in set(counts) | set(want):
+            n = counts.get(k, 0)
+            if n != want.get(k, 0):
+                fail(f"[11a] {tag} {fmt}: {k} launched {n} times, its steps "
+                     f"need {want.get(k, 0)}")
+            totals[k] = totals.get(k, 0) + n
+        rows = scalar_rows(ck)
+        got = {r["tag"]: r["value"] for r in rows}
+        print(f"[11a] {tag} epoch 3 from {fmt} files: {secs:.2f} s in its "
+              f"own process ({startup:.2f} s to import Python and torch); "
+              f"train phase {got.get('train epoch_seconds', 0):.3f} s, "
+              f"{got.get('train frames_per_sec', 0):.1f} valid frames/s; "
+              f"test phase {got.get('test epoch_seconds', 0):.3f} s, "
+              f"{got.get('test frames_per_sec', 0):.1f}; launches "
+              f"{ {k: n for k, n in counts.items() if n} }  [{card}]")
+        runs.append((ck, [(r["tag"], r["step"], r["value"]) for r in rows
+                          if not r["tag"].endswith(("frames_per_sec",
+                                                    "epoch_seconds"))]))
+    (ck0, rows0), (ck1, rows1) = runs
+    same = len(rows0) == len(rows1) and all(
+        a[:2] == b[:2] and (a[2] == b[2] or a[2] != a[2] and b[2] != b[2])
+        for a, b in zip(rows0, rows1))  # NaN equals NaN here
+    if not same or not rows0 or {s for _, s, _ in rows0} != {3}:
+        fail(f"[11a] {tag}: the logged values differ ({len(rows0)} and "
+             f"{len(rows1)} rows) or are not epoch 3's")
+    odd = sorted((t, v) for t, _, v in rows0 if not math.isfinite(v))
+    print(f"[11a] {tag}: logged values that are not finite: "
+          f"{odd or 'none'}")
+    odd = [t for t, _ in odd]
+    if any(not t.endswith("f0_rmse metric") for t in odd):
+        fail(f"[11a] {tag}: a logged value other than f0_rmse is not "
+             f"finite")  # f0_rmse's own cause is held by f0_rmse_cause
+    if ref is not None and not any(t.endswith("spoofing rate")
+                                   for t, _, _ in rows0):
+        fail(f"[11a] {tag}: no spoofing rate: --checkpoint-r was not read")
+    for name in ("Generator", "Discriminator"):
+        a, b = (torch.load(os.path.join(ck, f"checkpoint_epoch3_{name}.pth"),
+                           map_location="cpu", weights_only=True)
+                for ck in (ck0, ck1))
+        require_same_states(f"[11a] {tag} epoch 3 {name}", a, b)
+    print(f"[11a] {tag}: both runs logged the same {len(rows0)} values and "
+          f"wrote the same epoch-3 checkpoints, bit for bit")
+    return totals
+
+
+def start_continuation(tts_tmp):
+    """Phase 11a's control for the tts pair: phase 10's stage-5 command
+    (the curriculum's: from the warm-up checkpoints of epoch 1, optimizers
+    reset, restart at epoch 1) with nepoch=3, so that epochs 2 and 3 run in
+    one process and epoch 3 takes the adversarial weight epoch 2 leaves,
+    where a resumed run starts it again at w_d.  Returns its checkpoint
+    directory and its job."""
+    gan = os.path.join(tts_tmp, "ck_acoustic", "gan")
+    ck = os.path.join(tts_tmp, "continued")
+    argv = [os.path.join(tts_tmp, d) for d in RESUMES[0][3]] + [
+        "--hparams_name=tts_acoustic", f"--hparams={RESUMES[0][2]},nepoch=3",
+        f"--checkpoint-dir={ck}",
+        f"--checkpoint-g={gan}/checkpoint_epoch1_Generator.pth",
+        f"--checkpoint-d={gan}/checkpoint_epoch1_Discriminator.pth",
+        f"--log-event-path={ck}/log", "--reset_optimizers",
+        "--restart_epoch=1", "--w_d=1.0", "--disable-slack"]
+    return ck, start_cli_process(argv, ck + "_run")
+
+
+def check_continuation(card, tts_tmp, ck, job, n_steps, per_step,
+                       per_train_step):
+    """The control's two epochs launch what their steps need; prints
+    whether its epoch 2 logged phase 10's stage-5 values, the adversarial
+    weight its epoch 3 took, and its epoch-3 f0_rmse.  Returns its
+    launches."""
+    counts, secs, _, _ = finish_cli_process("tts continuation", job,
+                                            ck + "_run")
+    for k in set(counts) | set(per_step) | set(per_train_step):
+        want = 2 * (per_step.get(k, 0) * (n_steps["train"] + n_steps["test"])
+                    + per_train_step.get(k, 0) * n_steps["train"])
+        if counts.get(k, 0) != want:
+            fail(f"[11a] tts continuation: {k} launched {counts.get(k, 0)} "
+                 f"times, its steps need {want}")
+    timing = ("frames_per_sec", "epoch_seconds")
+    rows = [r for r in scalar_rows(ck) if not r["tag"].endswith(timing)]
+    ours = [(r["tag"], r["value"]) for r in rows if r["step"] == 2]
+    theirs = [(r["tag"], r["value"])
+              for r in scalar_rows(os.path.join(tts_tmp, "ck_acoustic", "gan"))
+              if r["step"] == 2 and not r["tag"].endswith(timing)]
+    got = {(r["tag"], r["step"]): r["value"] for r in rows}
+    print(f"[11a] tts continuation (stage 5 to epoch 3 in one process, "
+          f"{secs:.2f} s): epoch 2 logged phase 10's stage-5 values bit "
+          f"for bit: {ours == theirs}; epoch 3 took the adversarial weight "
+          f"{got.get(('MGE/ADV loss weight', 2))!r} (the resumed runs: "
+          f"1.0); epoch 3 f0_rmse train "
+          f"{got.get(('train f0_rmse metric', 3))!r}, test "
+          f"{got.get(('test f0_rmse metric', 3))!r}  [{card}]")
+    return counts
+
+
+LOG_FLT_MAX = math.log(torch.finfo(torch.float32).max)  # 88.72
+
+
+def f0_rmse_cause(card, dev, tts_tmp, generators):
+    """Why a tts_acoustic generator's f0_rmse is not finite.  For each
+    generator ({label: checkpoint}), in eval mode over each split of the
+    corpus, as the test phase runs it: the frames it calls voiced, those it
+    and the data both call voiced (co-voiced), the largest log-F0 it
+    predicts on one (denormalized, as f0_rmse reads it), the largest
+    |output| in normalized units, and the split's f0_rmse recomputed as the
+    loop logs it (the mean over batches of each batch's).  A batch's
+    f0_rmse is NaN where it has no co-voiced frame ("empty") or where exp
+    of a predicted log-F0 is not finite (above LOG_FLT_MAX, exp overflows
+    float32) on a frame the mask zeroes ("stray": inf * 0), padding
+    included; inf where that happens on co-voiced frames ("over") alone.  Rewrites the data's stats (the same
+    values), so it runs after every process that reads them.  Returns
+    {label: {split: {...}}}."""
+    from gantts_tpu_torch import hparams
+    from gantts_tpu_torch.core.masking import sequence_mask
+    from gantts_tpu_torch.core.streams import get_static_features
+    from gantts_tpu_torch.models import create_model
+    from gantts_tpu_torch.train import GanTrainer, StepConfig
+    from gantts_tpu_torch.train.checkpoint import load_checkpoint
+    from gantts_tpu_torch.train.loop import RMatrixCache
+    from gantts_tpu_torch.train.metrics import lf0_mean_squared_error
+    from gantts_tpu_torch.train.setup import load_arrays, prepare_tts
+    from gantts_tpu_torch.train.step import _split_streams_inv_scale
+
+    hp = hparams.tts_acoustic.copy()
+    hp.parse(RESUMES[0][2])
+    xdir, ydir = (os.path.join(tts_tmp, d) for d in RESUMES[0][3])
+    with quiet():
+        X, Y, lengths = load_arrays(xdir, ydir)
+        loaders, y_mean, y_std = prepare_tts(X, Y, lengths, hp,
+                                             os.path.dirname(xdir))
+    cfg = StepConfig.from_hparams(hp, 1.0, 0.0, 1.0, True, True)
+    trainer = GanTrainer(cfg, y_mean, y_std, dev)
+    r_cache = RMatrixCache(hp.windows, dev)
+    splits = {phase: [tuple(torch.as_tensor(a, device=dev) for a in b)
+                      for b in loaders[phase]] for phase in ("train", "test")}
+    lf0_at = hp.stream_sizes[0]
+    print(f"[11a] f0_rmse's log-F0, denormalized: the data's mean "
+          f"{float(y_mean[lf0_at]):.6g}, std {float(y_std[lf0_at]):.6g}; "
+          f"exp overflows float32 above {LOG_FLT_MAX:.6g}")
+    found = {}
+    for label, path in generators.items():
+        model = create_model(hp.generator, compute_dtype=hp.compute_dtype,
+                             device=dev, **hp.generator_params).eval()
+        with quiet():
+            model.load_state_dict(load_checkpoint(path)[0])
+        found[label] = {}
+        for split, batches in splits.items():
+            got = dict(frames=0, voiced=0, covoiced=0, empty=0, over=0,
+                       stray=0, peak=-math.inf, out=0.0, f0_rmse=0.0)
+            with torch.no_grad(), plain_versions_forbidden():
+                for x, y, lh in batches:
+                    T = x.shape[1]
+                    y_hat, y_hat_static = trainer._gen_forward(
+                        model, x, r_cache.get(T), lh, None)
+                    y_static = get_static_features(
+                        y, cfg.num_windows, cfg.stream_sizes,
+                        cfg.has_dynamic_features)
+                    _, lf0, vuv, _ = _split_streams_inv_scale(
+                        y_static, trainer.Y_mean, trainer.Y_std, cfg)
+                    _, lf0_h, vuv_h, _ = _split_streams_inv_scale(
+                        y_hat_static, trainer.Y_mean, trainer.Y_std, cfg)
+                    mask = sequence_mask(lh, T)[..., None]
+                    valid = mask[..., 0] > 0.5
+                    both = (vuv > 0.5) & (vuv_h > 0.5) & valid
+                    pred = lf0_h[..., 0][both]
+                    got["frames"] += int(valid.sum())
+                    got["voiced"] += int(((vuv_h > 0.5) & valid).sum())
+                    got["covoiced"] += pred.numel()
+                    got["empty"] += pred.numel() == 0
+                    blown = ~torch.isfinite(torch.exp(lf0_h[..., 0]))
+                    got["over"] += int((blown & both).sum())
+                    got["stray"] += int((blown & ~both).sum())
+                    if pred.numel():
+                        got["peak"] = max(got["peak"], float(pred.max()))
+                    got["out"] = max(got["out"], float(
+                        (y_hat.abs() * mask).max()))
+                    got["f0_rmse"] += float(torch.sqrt(lf0_mean_squared_error(
+                        lf0, vuv, lf0_h, vuv_h, mask)))
+            got["f0_rmse"] /= len(batches)
+            found[label][split] = got
+            print(f"[11a] {label}, {split} split (eval mode): {got['voiced']}"
+                  f" of {got['frames']} frames predicted voiced, "
+                  f"{got['covoiced']} co-voiced ({got['empty']} of "
+                  f"{len(batches)} batches without one), largest log-F0 on one "
+                  f"{got['peak']:.6g}; exp(log-F0) not finite on "
+                  f"{got['over']} co-voiced and {got['stray']} other frames "
+                  f"(padding included); largest |output| {got['out']:.6g} "
+                  f"(normalized); f0_rmse {got['f0_rmse']!r}  [{card}]")
+    return found
+
+
+def eval_subset(src, dst, dirs, stats):
+    """A data directory of the EVAL_UTTERANCES shortest utterances of
+    ``src`` (links to its files) and its stats."""
+    xdir = os.path.join(src, dirs[0])
+    names = sorted(os.listdir(xdir),
+                   key=lambda f: os.path.getsize(os.path.join(xdir, f)))
+    for d in dirs:
+        os.makedirs(os.path.join(dst, d))
+        for f in names[:EVAL_UTTERANCES]:
+            os.symlink(os.path.join(src, d, f), os.path.join(dst, d, f))
+    for f in stats:
+        os.symlink(os.path.join(src, f), os.path.join(dst, f))
+    return dst
+
+
+def same_tree(a, b):
+    """Two output directories hold the same files, bit for bit."""
+    files = sorted(os.path.relpath(os.path.join(r, f), a)
+                   for r, _, fs in os.walk(a) for f in fs)
+    other = sorted(os.path.relpath(os.path.join(r, f), b)
+                   for r, _, fs in os.walk(b) for f in fs)
+    if files != other or "analysis.json" not in files:
+        fail(f"[11b] the outputs differ in files: {files} and {other}")
+    for f in files:
+        with open(os.path.join(a, f), "rb") as x, \
+                open(os.path.join(b, f), "rb") as y:
+            if x.read() != y.read():
+                fail(f"[11b] {f} differs between the two checkpoints")
+    return len(files)
+
+
+def run_in_process(main_fn, argv):
+    """One command line's main() in this process, every plain version
+    refused.  Returns its launches and seconds."""
+    from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with quiet(), plain_versions_forbidden():
+        rc = main_fn(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        fail(f"[11] {argv[0]}...: the command line exited {rc}")
+    return dict(launch_counts), time.perf_counter() - t0
+
+
+def eval_pair(card, tag, run, n_utt, per_utt, outs):
+    """Phase 11b: an evaluation command line on the .pth generators and on
+    their JAX twins (``run(i)`` gives the launches and seconds of the run
+    of FORMATS[i], which wrote ``outs[i]``): the launches its utterances
+    need and the same wavs and analysis.json."""
+    totals = {}
+    for i, fmt in enumerate(FORMATS):
+        counts, secs = run(i)
+        print(f"[11b] {tag} from {fmt} files: {n_utt} utterances in "
+              f"{secs:.2f} s; launches "
+              f"{ {k: n for k, n in counts.items() if n} }  [{card}]")
+        for k in set(counts) | set(per_utt):
+            n = counts.get(k, 0)
+            if n != per_utt.get(k, 0) * n_utt:
+                fail(f"[11b] {tag}: {k} launched {n} times, its utterances "
+                     f"need {per_utt.get(k, 0) * n_utt}")
+            totals[k] = totals.get(k, 0) + n
+    print(f"[11b] {tag}: the same {same_tree(*outs)} files (wavs and "
+          f"analysis.json) from both formats, bit for bit")
+    return totals
+
+
+def phase_jax_files(dev, card, vc_tmp, tts_tmp):
+    """Phase 11: the JAX package's checkpoint files on the card, at full
+    width in the bundles' float32.  The card's machine has no JAX, so the
+    phase writes them (write_jax_twin) from the checkpoints phases 8 and 10
+    left: the vc curriculum's adversarial In2OutRNNHighwayNet and its
+    discriminators, the tts_acoustic curriculum's, and the tts_duration
+    generator.  Prints how long reading each takes beside the .pth, then:
+    (11a) epoch 3 of each adversarial stage resumed from the .pth files and
+    from their twins, each in a process of its own (start_resume_pair,
+    check_resume_pair), and the tts stage run on from epoch 1 to 3 in one
+    process as their control (start_continuation, check_continuation);
+    (11b) evaluation_tts (a process for each format, started with 11a's
+    five) and evaluation_vc (in this process, while those run) on both
+    formats (eval_pair); (11c) a legacy pickle refused by -g and warned
+    about by --checkpoint-r, whose stage trains on; last, where tts epoch
+    3's test f0_rmse is not finite, its cause (f0_rmse_cause).  Returns the launch counts of all of it."""
+    import warnings
+
+    from gantts_tpu_torch import evaluation_vc, hparams
+    from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from gantts_tpu_torch.train.__main__ import main as train_main
+
+    t_start = time.perf_counter()
+    totals, twins = {}, {}
+    for tag, hp_name, spec, dirs, ck, ref in RESUMES:
+        tmp = tts_tmp if tag == "tts" else vc_tmp
+        hp = getattr(hparams, hp_name)
+        files = {}
+        for name, opt in (("Generator", "g"), ("Discriminator", "d")):
+            pth = os.path.join(tmp, ck, f"checkpoint_epoch2_{name}.pth")
+            files[name] = (pth, write_jax_twin(
+                pth, getattr(hp, f"optimizer_{opt}"),
+                getattr(hp, f"optimizer_{opt}_params")))
+        if ref is not None:
+            ref = os.path.join(tmp, ref)
+            ref = (ref, write_jax_twin(ref, hp.optimizer_d,
+                                       hp.optimizer_d_params))
+        twins[tag] = files, ref
+    dur = os.path.join(tts_tmp, "ck_duration", "gan",
+                       "checkpoint_epoch2_Generator.pth")
+    dur = (dur, write_jax_twin(dur, hparams.tts_duration.optimizer_g,
+                               hparams.tts_duration.optimizer_g_params))
+    print(f"[11] JAX-format twins of {2 * len(RESUMES) + 2} checkpoints "
+          f"written in {time.perf_counter() - t_start:.2f} s")
+    read_times(card, {"tts_acoustic generator": twins["tts"][0]["Generator"],
+                      "tts_duration generator": dur,
+                      "vc generator": twins["vc"][0]["Generator"]})
+    check_restored(card, "tts_acoustic", acoustic_hp("float32"), dev,
+                   twins["tts"][0])
+    check_restored(card, "vc", vc_hp("float32", "In2OutRNNHighwayNet"), dev,
+                   twins["vc"][0])
+
+    # 11a's five processes and 11b's two evaluation_tts (host-bound, a
+    # process each), all at once
+    started = {tag: start_resume_pair(tts_tmp if tag == "tts" else vc_tmp,
+                                      tag, hp_name, spec, dirs,
+                                      *twins[tag])
+               for tag, hp_name, spec, dirs, _, _ in RESUMES}
+    continued, control = start_continuation(tts_tmp)
+    n_utt = EVAL_UTTERANCES - 1
+    feats = eval_subset(
+        os.path.join(tts_tmp, "feats"), os.path.join(tts_tmp, "eval11"),
+        ("X_acoustic", "Y_acoustic"),
+        [f"{xy}_{typ}_data_{s}.npy" for typ in ("acoustic", "duration")
+         for xy, stats in (("X", ("min", "max")), ("Y", ("mean", "var")))
+         for s in stats])
+    acoustic = twins["tts"][0]["Generator"]
+    labels = os.path.join(tts_tmp, "corpus", "label_state_align")
+    tts_outs = [os.path.join(tts_tmp, f"eval_tts_{i}") for i in (0, 1)]
+    tts_jobs = [start_cli_process(
+        [acoustic[i], dur[i], feats, labels, tts_outs[i],
+         f"--hparams_acoustic={RESUMES[0][2]}",
+         f"--hparams_duration={DUR_SPEC}", "--workers=4", "--device=cuda"],
+        tts_outs[i], "gantts_tpu_torch.evaluation_tts") for i in (0, 1)]
+    t0 = time.perf_counter()
+
+    # meanwhile, in this process: 11b's evaluation_vc
+    data = eval_subset(vc_tmp, os.path.join(vc_tmp, "eval11"), ("X", "Y"),
+                       ["data_mean.npy", "data_var.npy"])
+    vc_gen = twins["vc"][0]["Generator"]
+    vc_outs = [os.path.join(vc_tmp, f"eval_vc_{i}") for i in (0, 1)]
+    counts = eval_pair(card, "evaluation_vc", lambda i: run_in_process(
+        evaluation_vc.main,
+        [vc_gen[i], data, os.path.join(vc_tmp, "wav"), vc_outs[i],
+         f"--hparams={RESUMES[1][2]}", "--diffvc", "--workers=4",
+         "--device=cuda"]), n_utt, dict(sru_proj_gemm=3, lstm_fwd_scan=3),
+        vc_outs)
+    for k, n in counts.items():
+        totals[k] = totals.get(k, 0) + n
+
+    # 11c: a legacy pickle, refused by -g, warned about by --checkpoint-r
+    pickled = write_legacy_pickle(os.path.join(vc_tmp, "legacy.pth"))
+    files, _ = twins["vc"]
+    argv = [os.path.join(vc_tmp, "X"), os.path.join(vc_tmp, "Y"),
+            "--hparams_name=vc", f"--hparams={RESUMES[1][2]},nepoch=3",
+            f"--checkpoint-dir={os.path.join(vc_tmp, 'refusal')}",
+            f"--checkpoint-d={files['Discriminator'][0]}",
+            f"--log-event-path={os.path.join(vc_tmp, 'refusal', 'log')}",
+            "--w_d=1.0", "--disable-slack"]
+    try:
+        with quiet():
+            train_main(argv + [f"--checkpoint-g={pickled}"])
+        fail("[11c] -g took a legacy pickle")
+    except ValueError as e:
+        if "legacy pickle" not in str(e) or "never executes" not in str(e):
+            raise
+        print(f"[11c] -g with a legacy pickle: refused, {str(e)[-95:]!r}")
+    reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught, quiet(), \
+            plain_versions_forbidden():
+        warnings.simplefilter("always")
+        rc = train_main(argv + [f"--checkpoint-g={files['Generator'][0]}",
+                                f"--checkpoint-r={pickled}"])
+    torch.cuda.synchronize()
+    said = [str(w.message) for w in caught
+            if "reference discriminator" in str(w.message)]
+    done = os.path.exists(os.path.join(vc_tmp, "refusal",
+                                       "checkpoint_epoch3_Generator.pth"))
+    print(f"[11c] --checkpoint-r with a legacy pickle: exit {rc}, warned "
+          f"{len(said)} time(s) ({said[0][:80] if said else ''!r}...), "
+          f"epoch 3 written: {done}")
+    if rc != 0 or not said or "legacy pickle" not in said[0] or not done:
+        fail("[11c] --checkpoint-r with a legacy pickle did not warn and "
+             "train on")
+    for k, n in launch_counts.items():
+        totals[k] = totals.get(k, 0) + n
+
+    for (tag, hp_name, _, dirs, _, _), per in zip(RESUMES, (
+            (dict(sru_proj_gemm=12, sru_fwd_scan=12), dict(sru_bwd_scan=12)),
+            (dict(sru_proj_gemm=3, lstm_fwd_scan=3),
+             dict(lstm_bwd_scan=3)))):
+        tmp = tts_tmp if tag == "tts" else vc_tmp
+        n_steps = epoch_steps(os.path.join(tmp, dirs[0]),
+                              getattr(hparams, hp_name).batch_size)
+        counts = check_resume_pair(card, tag, started[tag], n_steps, *per,
+                                   twins[tag][1])
+        if tag == "tts":
+            for k, n in check_continuation(card, tts_tmp, continued, control,
+                                           n_steps, *per).items():
+                counts[k] = counts.get(k, 0) + n
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+    counts = eval_pair(
+        card, "evaluation_tts",
+        lambda i: finish_cli_process("evaluation_tts", tts_jobs[i],
+                                     tts_outs[i])[:2],
+        n_utt, dict(sru_proj_gemm=24, sru_fwd_scan=24), tts_outs)
+    for k, n in counts.items():
+        totals[k] = totals.get(k, 0) + n
+
+    # 11a's f0_rmse: where the resumed test phase logged a value that is
+    # not finite, f0_rmse_cause must recompute it and find its cause
+    reset_launch_counts()
+    gan = os.path.join(tts_tmp, "ck_acoustic", "gan")
+    resumed = "11a's resumed generator, epoch 3"
+    cause = f0_rmse_cause(card, dev, tts_tmp, {
+        "the generator warm-up's, epoch 1": os.path.join(
+            gan, "checkpoint_epoch1_Generator.pth"),
+        "phase 10's stage-5 generator, epoch 2": os.path.join(
+            gan, "checkpoint_epoch2_Generator.pth"),
+        resumed: os.path.join(tts_tmp, "resume_0",
+                              "checkpoint_epoch3_Generator.pth"),
+        "the continuation's generator, epoch 3": os.path.join(
+            continued, "checkpoint_epoch3_Generator.pth")})
+    for k, n in launch_counts.items():
+        totals[k] = totals.get(k, 0) + n
+    logged = [r["value"] for r in scalar_rows(os.path.join(tts_tmp,
+                                                           "resume_0"))
+              if r["tag"] == "test f0_rmse metric"][0]
+    again = cause[resumed]["test"]
+    if not math.isfinite(logged):
+        known = (math.isnan(logged) and math.isnan(again["f0_rmse"])
+                 and (again["empty"] or again["stray"])) or \
+            (logged == again["f0_rmse"] == math.inf and again["over"])
+        print(f"[11a] tts epoch 3's test f0_rmse: logged {logged!r}, "
+              f"recomputed {again['f0_rmse']!r}: "
+              f"{again['empty']} batches without a co-voiced frame, exp "
+              f"of the log-F0 not finite on {again['over']} co-voiced and "
+              f"{again['stray']} other frames")
+        if not known:
+            fail("[11a] tts epoch 3's test f0_rmse is not finite, and "
+                 "neither a missing co-voiced frame nor an overflowing "
+                 "log-F0 explains it")
+    print(f"[11] the seven processes, run together, done "
+          f"{time.perf_counter() - t0:.2f} s after the last started; "
+          f"phase 11 took {time.perf_counter() - t_start:.1f} s, launches "
+          f"{ {k: n for k, n in totals.items() if n} }  [{card}]")
+    return totals
+
+
 def main_paths():
     """Phase 4's paths: (tag, hparams, launches a step of each kernel,
     expected parameter counts of the generator and the discriminator,
@@ -2551,6 +3325,8 @@ def run_path(dev, card, tag, hp, per_step, n_expected, make_batch, unit,
         counts, ms, run_steps = phase_main_path(dev, card, tag, hp, per_step,
                                                 n_expected, make_batch, unit)
         names = phase_profile(tag, run_steps, ms, card)
+        if tag in DEBUG_NANS_PATHS:
+            debug_nans_cost(tag, card, run_steps)
     design = DESIGN[io_dtype(hp.compute_dtype)]
     for way in ("fwd", "bwd"):
         if not (require_design and counts[f"lstm_{way}_scan"]) or \
@@ -2623,17 +3399,19 @@ def main():
         launches[k] += n
     for k, n in phase_curriculum(card).items():
         launches[k] += n
-    with tempfile.TemporaryDirectory() as tmp:
-        counts, checkpoint = phase_vc_curriculum(card, tmp)
+    with tempfile.TemporaryDirectory() as vc_tmp, \
+            tempfile.TemporaryDirectory() as tts_tmp:
+        counts, checkpoint = phase_vc_curriculum(card, vc_tmp)
         for k, n in list(counts.items()) + list(
-                phase_vc_eval(card, tmp, checkpoint).items()):
+                phase_vc_eval(card, vc_tmp, checkpoint).items()):
             launches[k] += n
-    with tempfile.TemporaryDirectory() as tmp:
-        for k, n in phase_tts_demo(card, tmp).items():
+        for k, n in phase_tts_demo(card, tts_tmp).items():
+            launches[k] += n
+        for k, n in phase_jax_files(dev, card, vc_tmp, tts_tmp).items():
             launches[k] += n
 
-    # launches: the main paths' runs, 4-4f, 6, 7, 8, 9 and 10 (sru_proj_gemm
-    # and the scans serve several)
+    # launches: the main paths' runs, 4-4h, 6, 7, 8, 9, 10 and 11
+    # (sru_proj_gemm and the scans serve several)
     print(f"[end] all phases passed in {time.perf_counter() - started:.1f} s")
     kernels = [dict({"name": k, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[k],
@@ -2647,4 +3425,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--counted"]:
+        sys.exit(run_counted(sys.argv[2:]))
     sys.exit(main())

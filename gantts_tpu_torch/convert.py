@@ -20,7 +20,8 @@ import torch
 
 def flax_to_torch(params_tree):
     """Flax variables (``{"params": tree}``) or a bare parameter tree ->
-    ``state_dict`` of CPU tensors."""
+    ``state_dict`` of CPU tensors.  Leaves are NumPy arrays, or torch
+    tensors (``flax_msgpack`` reads bfloat16 into them)."""
     if isinstance(params_tree, Mapping) and set(params_tree) == {"params"}:
         params_tree = params_tree["params"]
     out = {}
@@ -30,6 +31,8 @@ def flax_to_torch(params_tree):
             name = f"{prefix}{key}"
             if isinstance(value, Mapping):
                 walk(value, name + ".")
+            elif torch.is_tensor(value):  # bfloat16, which NumPy lacks
+                out[name] = value.detach().clone()
             else:
                 out[name] = torch.from_numpy(np.array(value, copy=True))
     walk(params_tree, "")

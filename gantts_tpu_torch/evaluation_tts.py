@@ -9,8 +9,9 @@ It takes evaluation_tts.py's flags (``--fs``, the reference's misspelt
 ``--disable-duraton-gen``, ``--post-filter``, ``--true-variance-mlpg``,
 ``--hparams_acoustic``, ``--hparams_duration``, ``--workers``) and adds
 ``--device`` (``cuda`` unless asked for ``cpu``).  Both checkpoints are
-generator checkpoints of the port's training command line (``torch.save``;
-the JAX package's msgpack checkpoints are not read).  ``data_dir`` holds
+generator checkpoints of the port's training command line (``torch.save``)
+or of the JAX package's (flax msgpack); a legacy pickle checkpoint is
+refused (``train/checkpoint.py``).  ``data_dir`` holds
 ``X_acoustic`` and the stats that training saved for both models
 (``X_{typ}_data_{min,max}.npy``, ``Y_{typ}_data_{mean,var}.npy``); the eval
 and test utterances are re-derived from X_acoustic's files by the

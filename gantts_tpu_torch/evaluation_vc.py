@@ -7,7 +7,8 @@ of the repository's evaluation_vc.py):
 It takes evaluation_vc.py's flags (``--diffvc``, ``--hparams``,
 ``--workers``) and adds ``--device`` (``cuda`` unless asked for ``cpu``).
 ``checkpoint`` is a generator checkpoint of the port's training command line
-(``torch.save``; the JAX package's msgpack checkpoints are not read).
+(``torch.save``) or of the JAX package's (flax msgpack); a legacy pickle
+checkpoint is refused (``train/checkpoint.py``).
 ``data_dir`` holds the X directory and the normalization stats
 (``data_mean.npy``, ``data_var.npy``) that training saved; the eval and
 test utterances are re-derived from X's files by the reference's split, and

@@ -18,8 +18,19 @@ corpus: X and Y share pooled normalization stats (``data_mean`` and
 itself, and the discriminator reads the static mel-cepstra alone, so a
 ``--checkpoint-r`` reference discriminator serves the spoofing rate.
 
-Not here: train.py's multi-device and compile-cache flags, which are TPU
-matters, and ``--steps-per-dispatch``.
+``-g`` / ``-d`` / ``--checkpoint-r`` read the port's own ``torch.save``
+checkpoints and the JAX package's flax msgpack ones (parameters, and the
+optax state carried into torch.optim's; see ``checkpoint.py``).  A legacy
+pickle checkpoint is refused: this program executes no code from a file.
+
+``--profile-dir`` writes a torch.profiler Chrome trace of the second epoch
+of the run (the first pays for building and loading the kernels);
+``--debug-nans`` stops at the first non-finite gradient norm or loss with a
+``FloatingPointError`` that names the epoch, phase, batch and quantity.
+
+Not here: ``--steps-per-dispatch`` and train.py's multi-device flags
+(``--num-devices``, ``--distributed`` and the coordinator's), and its
+compile-cache environment switch, a TPU matter.
 """
 
 from __future__ import annotations
@@ -62,6 +73,11 @@ def build_arg_parser():
                    action="store_true",
                    help="accepted so that reference command lines parse; "
                         "this program posts no message")
+    p.add_argument("--profile-dir", dest="profile_dir", default=None,
+                   help="capture a torch.profiler trace of one epoch here")
+    p.add_argument("--debug-nans", dest="debug_nans", action="store_true",
+                   help="fail fast on the first NaN/Inf (gradient norm or "
+                        "loss)")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: cuda)")
     return p
@@ -124,8 +140,10 @@ def main(argv=None):
                 hp.discriminator, compute_dtype=hp.compute_dtype,
                 device=args.device, **hp.discriminator_params)
             model_ref.load_state_dict(state_dict, strict=True)
-        except (OSError, KeyError, RuntimeError, pickle.UnpicklingError) \
-                as e:  # the reference warns and trains on without it
+        except (OSError, KeyError, RuntimeError, ValueError,
+                pickle.UnpicklingError) as e:
+            # the reference warns and trains on without it; so does a
+            # refused pickle, as under the JAX command line
             warn(f"Invalid checkpoint for reference discriminator: {e!r}")
             model_ref = None
 
@@ -155,7 +173,8 @@ def main(argv=None):
         trainer, gstate, dstate, loaders, hp, w_d=w_d, mse_w=mse_w,
         mge_w=mge_w, update_d=update_d, update_g=update_g,
         checkpoint_dir=args.checkpoint_dir, writer=writer,
-        global_epoch=global_epoch)
+        global_epoch=global_epoch, profile_dir=args.profile_dir,
+        debug_nans=args.debug_nans)
 
     for state, enabled, name in [(gstate, update_g, "Generator"),
                                  (dstate, cfg.update_d, "Discriminator")]:

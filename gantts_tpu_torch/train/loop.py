@@ -11,6 +11,19 @@ scalars stay on the device until the end of the phase: the host reads them
 once per phase, so it never waits inside the batch loop.  Each phase logs its
 valid frames per second and its wall time.
 
+Two debugging aids, off by default (the CLI's ``--profile-dir`` and
+``--debug-nans``):
+
+  * ``profile_dir``: the second epoch of the run, ``global_epoch + 2`` (the
+    first pays for building and loading the kernels), train and test
+    phases, is traced by torch.profiler (CPU and, on the card, CUDA
+    activity) into one Chrome trace ``profile_dir/trace_epoch{N}.json``;
+  * ``debug_nans``: the optimizers raise ``FloatingPointError`` on a
+    gradient norm that is not finite, and each step's losses are read and
+    checked, the error naming the epoch, phase, batch and quantity.  This
+    adds host synchronisations in every step; without it the loop adds
+    none.
+
 Randomness: the generator's input noise z comes from ``RandomState(seed)``
 on the host, as in the JAX package, so both draw the same z; dropout masks
 come from a ``torch.Generator`` on the device seeded with ``seed``.
@@ -18,6 +31,7 @@ come from a ``torch.Generator`` on the device seeded with ``seed``.
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -54,6 +68,40 @@ class RMatrixCache:
         return self._cache[T]
 
 
+LOSSES = ("discriminator", "loss_real_d", "loss_fake_d", "mse", "mge",
+          "loss_adv", "generator")
+
+
+def _require_finite_losses(out, where):
+    keys = [k for k in LOSSES if k in out]
+    finite = torch.isfinite(torch.stack([out[k].float() for k in keys]))
+    bad = [k for k, ok in zip(keys, finite.tolist()) if not ok]
+    if bad:
+        raise FloatingPointError(
+            f"{where}: the {bad[0]} loss is not finite (not finite: "
+            f"{', '.join(bad)})")
+
+
+def _start_profile(device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir, epoch):
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"trace_epoch{epoch}.json")
+    prof.export_chrome_trace(path)
+    print(f"Profile of epoch {epoch} written to {path}")
+    return path
+
+
 def _phase_sums(outs):
     """Sum each per-batch device scalar over the phase, read with one copy
     to the host."""
@@ -65,7 +113,8 @@ def _phase_sums(outs):
 
 def train_loop(trainer, gstate, dstate, dataset_loaders, hp, w_d=0.0,
                mse_w=0.0, mge_w=1.0, update_d=True, update_g=True,
-               checkpoint_dir=None, writer=None, global_epoch=0, seed=1234):
+               checkpoint_dir=None, writer=None, global_epoch=0, seed=1234,
+               profile_dir=None, debug_nans=False):
     """Train epochs global_epoch + 1 .. hp.nepoch.  ``trainer`` is a
     GanTrainer (with its reference discriminator when ``has_ref``); the
     states are updated in place.  Returns (gstate, dstate, final_epoch)."""
@@ -83,6 +132,11 @@ def train_loop(trainer, gstate, dstate, dataset_loaders, hp, w_d=0.0,
     def put(a):
         return torch.as_tensor(a, device=device)
 
+    if debug_nans:
+        gstate.optimizer.check_finite = "generator"
+        dstate.optimizer.check_finite = "discriminator"
+    traced = None
+
     for epoch in range(global_epoch + 1, hp.nepoch + 1):
         # LR schedule (reference train.py:466-473)
         if hp.lr_decay_schedule and update_g:
@@ -92,6 +146,9 @@ def train_loop(trainer, gstate, dstate, dataset_loaders, hp, w_d=0.0,
             set_learning_rate(dstate.optimizer, exp_decayed_lr(
                 hp.optimizer_d_params["lr"], epoch - 1, hp.lr_decay_epoch))
 
+        prof = (_start_profile(device) if profile_dir is not None
+                and epoch == global_epoch + 2 else None)
+
         for phase in ["train", "test"]:
             train = phase == "train"
             N = len(dataset_loaders[phase])
@@ -99,15 +156,21 @@ def train_loop(trainer, gstate, dstate, dataset_loaders, hp, w_d=0.0,
             adv_w = adv_weight(w_d, E_loss_mge, E_loss_adv) \
                 if update_g else 0.0
             outs = []
-            for x, y, lengths in dataset_loaders[phase]:
+            for i, (x, y, lengths) in enumerate(dataset_loaders[phase]):
                 z = (noise_rs.rand(x.shape[0], x.shape[1],
                                    hp.generator_noise_dim)
                      .astype(np.float32) if cfg.add_noise else None)
                 R = r_cache.get(x.shape[1]) if r_cache is not None else None
-                gstate, dstate, out = trainer.step(
-                    gstate, dstate, put(x), put(y), put(lengths), R, adv_w,
-                    generator=gen, train=train,
-                    z=put(z) if z is not None else None)
+                where = f"epoch {epoch}, {phase} phase, batch {i}"
+                try:
+                    gstate, dstate, out = trainer.step(
+                        gstate, dstate, put(x), put(y), put(lengths), R,
+                        adv_w, generator=gen, train=train,
+                        z=put(z) if z is not None else None)
+                except FloatingPointError as e:
+                    raise FloatingPointError(f"{where}: {e}") from e
+                if debug_nans:
+                    _require_finite_losses(out, where)
                 outs.append(out)
 
             sums = _phase_sums(outs)  # the phase's one host sync
@@ -159,6 +222,9 @@ def train_loop(trainer, gstate, dstate, dataset_loaders, hp, w_d=0.0,
                     sums.get("regard_fake_as_natural", 0.0)
                     / total_num_frames, epoch)
 
+        if prof is not None:
+            traced = _stop_profile(prof, profile_dir, epoch)
+
         if writer is not None:
             writer.flush()
 
@@ -169,4 +235,8 @@ def train_loop(trainer, gstate, dstate, dataset_loaders, hp, w_d=0.0,
                 if enabled:
                     save_checkpoint(state, epoch, checkpoint_dir, name)
 
+    if profile_dir is not None and traced is None:
+        print(f"No profile written: the trace is of the run's second epoch, "
+              f"and this run trains {max(hp.nepoch - global_epoch, 0)} "
+              f"epoch(s)")
     return gstate, dstate, hp.nepoch

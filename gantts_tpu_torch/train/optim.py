@@ -23,10 +23,14 @@ GRAD_CLIP_NORM = 1.0
 
 class ClippedOptimizer:
     """A torch optimizer whose ``step`` first clips the global gradient norm
-    of its parameters to GRAD_CLIP_NORM."""
+    of its parameters to GRAD_CLIP_NORM.  With ``check_finite`` set to the
+    name of what it updates (the loop's ``debug_nans``), a norm that is not
+    finite raises ``FloatingPointError`` instead, at the cost of one host
+    synchronisation a step."""
 
     def __init__(self, inner):
         self.inner = inner
+        self.check_finite = None
 
     @property
     def param_groups(self):
@@ -44,7 +48,16 @@ class ClippedOptimizer:
     def step(self):
         params = [p for group in self.inner.param_groups
                   for p in group["params"] if p.grad is not None]
-        torch.nn.utils.clip_grad_norm_(params, GRAD_CLIP_NORM)
+        try:
+            torch.nn.utils.clip_grad_norm_(
+                params, GRAD_CLIP_NORM,
+                error_if_nonfinite=self.check_finite is not None)
+        except RuntimeError as e:
+            if self.check_finite is None or "non-finite" not in str(e):
+                raise
+            raise FloatingPointError(
+                f"the {self.check_finite}'s gradient norm is not finite") \
+                from e
         self.inner.step()
 
 

@@ -1091,3 +1091,66 @@ def test_feature_engine_on_card_machine_matches_numpy(cuda, Tx, Ty):
     ref = scipy.linalg.solveh_banded(ab, rhs, lower=False)
     got = native.banded_cholesky_solve(ab, rhs, bandwidth=b)
     assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("generator", ["SRURNN", "In2OutRNNHighwayNet"])
+def test_jax_format_file_loads_onto_card_as_pth(cuda, tmp_path, generator):
+    """A JAX-format checkpoint (written by flax_msgpack.packb from the
+    port's state, as the JAX package's save_checkpoint lays it out) loaded
+    onto the card: the full-width float32 generator (tts_acoustic's 6x512
+    SRU, the vc bundle's 3x512 LSTM) and its Adagrad state restore bit for
+    bit as from the .pth, and its forward gives the same bits."""
+    from gantts_tpu_torch import hparams
+    from gantts_tpu_torch.core.windows import unit_variance_mlpg_matrix
+    from gantts_tpu_torch.models import create_model
+    from gantts_tpu_torch.train import TrainState
+    from gantts_tpu_torch.train import checkpoint as ckpt
+    from gantts_tpu_torch.train.flax_msgpack import packb
+    from gantts_tpu_torch.train.optim import create_optimizer
+
+    hp = (hparams.tts_acoustic if generator == "SRURNN"
+          else hparams.vc).copy()
+    hp.generator = generator
+    dims = (425, 187) if generator == "SRURNN" else (177, 177)
+    hp.generator_params.update(in_dim=dims[0], out_dim=dims[1])
+
+    def state():
+        model = create_model(generator, compute_dtype="float32",
+                             device=cuda, **hp.generator_params)
+        return TrainState(model, create_optimizer(
+            hp.optimizer_g, hp.optimizer_g_params, model.parameters()))
+    torch.manual_seed(0)
+    src = state()
+    for p in src.model.parameters():
+        p.grad = torch.randn_like(p) * 1e-2
+    src.optimizer.step()
+    payload = {"state_dict": {k: v.cpu() for k, v in
+                              src.model.state_dict().items()},
+               "optimizer": src.optimizer.state_dict(), "global_epoch": 4}
+    pth = str(tmp_path / "g.pth")
+    torch.save(payload, pth)
+    jax_file = tmp_path / "g_jax.pth"
+    jax_file.write_bytes(packb(ckpt.jax_payload(
+        payload, hp.optimizer_g, hp.optimizer_g_params)))
+    a, b = state(), state()
+    assert ckpt.restore(a, pth) == ckpt.restore(b, str(jax_file)) == 4
+    for k, v in a.model.state_dict().items():
+        assert v.device == cuda and torch.equal(b.model.state_dict()[k], v), k
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    for i, st in sa["state"].items():
+        for k, v in st.items():
+            assert torch.equal(sb["state"][i][k], v), (i, k)
+    T = 300
+    x = torch.tensor(np.random.RandomState(2).rand(2, T, dims[0]),
+                     dtype=torch.float32, device=cuda)
+    lengths = torch.tensor([T, T - 41], dtype=torch.int32, device=cuda)
+    args = (x, lengths)
+    if generator != "SRURNN":
+        R = torch.tensor(unit_variance_mlpg_matrix(hp.windows, T),
+                         device=cuda)
+        args = (x, R, lengths)
+    with torch.no_grad():
+        ya, yb = (s.model.eval()(*args) for s in (a, b))
+    ya, yb = (y if isinstance(y, tuple) else (y,) for y in (ya, yb))
+    for u, v in zip(ya, yb):
+        assert torch.isfinite(u).all() and torch.equal(u, v)

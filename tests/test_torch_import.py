@@ -31,11 +31,13 @@ def _run(code):
 
 def test_port_imports_without_jax():
     """A fresh interpreter that imports every module of the port (and uses
-    its host code) has neither jax nor gantts_tpu loaded, and no loaded
+    its host code) has neither jax nor gantts_tpu loaded, nor flax,
+    msgpack or optax (the card's machine has none of them), and no loaded
     module's file lies under gantts_tpu/."""
     assert "gantts_tpu_torch.train.__main__" in MODULES
     assert "gantts_tpu_torch.kernels.linear_scan" in MODULES
     assert "gantts_tpu_torch.curriculum" in MODULES
+    assert "gantts_tpu_torch.train.flax_msgpack" in MODULES
     assert {"gantts_tpu_torch.core.fast_mlpg", "gantts_tpu_torch.synthesis",
             "gantts_tpu_torch.evaluation_vc",
             "gantts_tpu_torch.frontend.native",
@@ -55,7 +57,8 @@ def test_port_imports_without_jax():
         "unit_variance_mlpg_matrix\n"
         "unit_variance_mlpg_matrix(hparams.tts_acoustic.windows, 16)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'gantts_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'gantts_tpu',\n"
+        "                                    'flax', 'msgpack', 'optax'))\n"
         f"jax_dir = {JAX_PACKAGE!r} + os.sep\n"
         "bad += sorted(m.__name__ for m in list(sys.modules.values())\n"
         "              if os.path.abspath(getattr(m, '__file__', None) or '')"
@@ -99,15 +102,16 @@ def test_native_loader_reads_nothing_under_the_jax_package():
 
 
 def test_port_sources_name_no_jax():
-    """No source file of the port, nor chip_smoke.py, imports jax or the JAX
-    package, or names a path under gantts_tpu/ in a string, or loads a
-    module by file path.  Docstrings and comments name their counterparts
-    as gantts_tpu/<file>, and chip_smoke.py's kernel records name the TPU
-    kernel each replaces as "gantts_tpu/<file>:<line>": neither is a path
-    that code could open."""
-    imports = re.compile(r"^\s*(import jax|from jax|import gantts_tpu\b"
-                         r"|from gantts_tpu[ .])|spec_from_file_location",
-                         re.M)
+    """No source file of the port, nor chip_smoke.py, imports jax, flax,
+    msgpack, optax or the JAX package, or names a path under gantts_tpu/ in
+    a string, or loads a module by file path.  Docstrings and comments
+    name their counterparts as gantts_tpu/<file>, and chip_smoke.py's
+    kernel records name the TPU kernel each replaces as
+    "gantts_tpu/<file>:<line>": neither is a path that code could open."""
+    imports = re.compile(r"^\s*(import (jax\w*|flax|msgpack|optax)\b"
+                         r"|from (jax\w*|flax|msgpack|optax)\b"
+                         r"|import gantts_tpu\b|from gantts_tpu[ .])"
+                         r"|spec_from_file_location", re.M)
     paths = re.compile(r"""["']gantts_tpu(/[\w./-]*)?["']""")
     sources = [join(root, f) for root, _, files in os.walk(PORT)
                for f in files if f.endswith((".py", ".cu"))]
@@ -119,6 +123,13 @@ def test_port_sources_name_no_jax():
         if imports.search(text) or paths.search(text):
             found.append(src)
     assert found == []
+    for line in ("import flax", "    from msgpack import packb",
+                 "import optax as o", "from jax import numpy",
+                 "from flax.serialization import msgpack_restore",
+                 "import jaxlib", "from jaxlib import xla_client"):
+        assert imports.search(line), line
+    assert not imports.search("from gantts_tpu_torch.train import "
+                              "flax_msgpack")
     assert paths.search('join(REPO, "gantts_tpu", "hparams.py")')
     assert paths.search("open('gantts_tpu/core/windows.py')")
     assert not paths.search('"replaces": "gantts_tpu/kernels/x.py:85"')
