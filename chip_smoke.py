@@ -62,8 +62,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      the vc step of (4e) in the bundle's own float32: the f32 GEMM and the
      flag design's LSTM scans, 3 + 3 + 3 launches a step; (4g) and (4h)
      also time rounds of their steps without and with what --debug-nans
-     adds to a step (the optimizers' finite-norm check and the read of
-     the step's losses), alternating;
+     adds to a step (one read of both gradient norms and the step's
+     losses), alternating; (4i) for each of (4) to (4h), from the same
+     states and the same 2K + 1 batches (K = 16, the CLI's default), 2K +
+     1 eager steps against one eager step and two dispatches of K steps
+     through GanTrainer.multi_step, one CUDA graph replay each (the first
+     captures it): the same bits in every step's scalars, parameters,
+     optimizer state and the dropout generator's state, and K times a
+     step's launches on the counters at each replay; the capture's
+     seconds, per-step wall with K = 1 and K = 16 in alternating rounds,
+     a traced window of replays and the peak memory of both;
   5. one small float32 step on the card against the same step on the CPU
      (where every kernel wrapper takes its plain version), same weights,
      and the same step on the card with TF32 matmuls as a control that the
@@ -78,11 +86,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      2, which must name sru_proj_gemm, sru_fwd_scan and sru_bwd_scan),
      then a second stage resumed from both checkpoints for one more epoch,
      without and with --debug-nans (which must run clean; both walls
-     printed);
+     printed); (6b) two epochs with --steps-per-dispatch 1 and at its
+     default (16) on a corpus whose batches share their shapes: the
+     default must run CUDA graphs and log the same values, bit for bit
+     (the wall-clock series apart), with the same launches; its
+     --profile-dir trace of an epoch in replays is read for the kernels'
+     names;
   7. the port's curriculum command (gantts_tpu_torch.curriculum, the
      counterpart of train_gan.sh) with the full-width tts_duration bundle
-     on a synthetic phone-level corpus: stages 1-3 and 5, one or two epochs
-     each, with each stage's checkpoints, logs and kernel launches checked;
+     on a synthetic phone-level corpus large enough that the default of 16
+     steps a dispatch runs CUDA graphs: stages 1-3 and 5, one or two
+     epochs each, with each stage's checkpoints, logs and kernel launches
+     checked, and the steps that ran in graph replays counted (7, 8 and 10
+     print them from the loop's output);
   8. the curriculum command with the vc bundle in its own float32 and a
      full-width In2OutRNNHighwayNet, on a parallel corpus the script makes
      from speech-like waveforms with the port's own WORLD/SPTK analysis:
@@ -138,6 +154,7 @@ reports them, and the JSON status line.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import math
 import os
@@ -1392,18 +1409,18 @@ def phase_main_path(dev, card, tag, hp, per_step, n_expected, make_batch,
 
     def run_steps(n, debug_nans=False):
         """n more steps; with ``debug_nans``, with what the training loop's
-        debug_nans adds to each: the optimizers' finite-norm check and the
-        read and check of the step's losses."""
+        debug_nans adds to each: one read of both optimizers' gradient
+        norms and the step's losses."""
         from gantts_tpu_torch.train.loop import _require_finite_losses
 
         nonlocal gstate, dstate
-        for state, name in ((gstate, "generator"), (dstate, "discriminator")):
-            state.optimizer.check_finite = name if debug_nans else None
         for i in range(n):
             gstate, dstate, out = trainer.step(gstate, dstate, x, y, lengths,
                                                R, 1.0, gen)
             if debug_nans:
-                _require_finite_losses(out, f"step {tag}, batch {i}")
+                _require_finite_losses(out, f"step {tag}, batch {i}", [
+                    (name, s.optimizer.grad_norm) for name, s in (
+                        ("discriminator", dstate), ("generator", gstate))])
     return counts, ms, run_steps
 
 
@@ -1416,24 +1433,168 @@ def debug_nans_cost(tag, card, run_steps):
     rounds of STEPS timed steps without it, then with it (run_steps).
     Prints each round's ms/step and the median of the rounds' ratios."""
     rounds = []
-    try:
-        for _ in range(DEBUG_NANS_ROUNDS):
-            ms = []
-            for on in (False, True):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                run_steps(STEPS, debug_nans=on)
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) / STEPS * 1e3)
-            rounds.append(ms)
-    finally:
-        run_steps(0)  # the checks off again
+    for _ in range(DEBUG_NANS_ROUNDS):
+        ms = []
+        for on in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_steps(STEPS, debug_nans=on)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) / STEPS * 1e3)
+        rounds.append(ms)
     ratios = sorted(b / a for a, b in rounds)
     print(f"[{tag}] --debug-nans, ms/step without and with, "
           f"{DEBUG_NANS_ROUNDS} rounds of {STEPS} steps: "
           + "; ".join(f"{a:.3f}, {b:.3f}" for a, b in rounds)
           + f"; median cost {100 * (ratios[len(ratios) // 2] - 1):+.2f}%"
           f"  [{card}]")
+
+
+GRAPH_K = 16          # phase 4i: steps a dispatch (the CLI's auto)
+GRAPH_ROUNDS = 3      # phase 4i: alternating timed rounds of K = 1 and K
+
+
+def graph_batches(x, y, lh, n):
+    """Phase 4i's ``n`` batches of a path's shapes: its batch with x, y and
+    the lengths rolled together along B by 0 .. n - 1 rows (other data in
+    each step, the same shapes)."""
+    lengths = torch.as_tensor(lh, device=x.device)
+    return [(x.roll(i, 0), y.roll(i, 0), lengths.roll(i, 0))
+            for i in range(n)]
+
+
+def state_payloads(gstate, dstate):
+    return [{"state_dict": s.model.state_dict(),
+             "optimizer": s.optimizer.state_dict()} for s in (gstate, dstate)]
+
+
+def phase_graphs(dev, card, tag, hp, per_step, make_batch):
+    """Phase 4i for one phase 4 path (``tag``, ``hp``, ``per_step``,
+    ``make_batch`` as main_paths gives them), every plain version refused:
+    from the same initial states and the same 2K + 1 batches (graph_batches,
+    K = GRAPH_K), 2K + 1 eager steps against the first batch eager (the
+    warm-up a capture needs) and two dispatches of K steps through
+    ``GanTrainer.multi_step``, the first of which captures the CUDA graph.
+    Fails unless every step's scalars, every parameter and optimizer
+    tensor and the dropout generator's state are the same bits, unless
+    each replay's launch counters read K x ``per_step`` (a replay adds the
+    kernel nodes read from its graph, which the capture holds to the
+    wrapper calls), and unless the trace of a replay names each kernel
+    of the path.  Prints the capture's seconds and those of reading its
+    kernel nodes, per-step wall for K = 1 and K (GRAPH_ROUNDS alternating
+    rounds of K steps each, and the medians), the device busy time and
+    idle share of a traced dispatch, and the peak memory of the eager
+    steps and of the graph's capture and replays.  Returns the launch
+    counts of the main-path runs."""
+    from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from gantts_tpu_torch.train.setup import init_models_and_states
+
+    K = GRAPH_K
+    x, y, lh, R = make_batch(hp, dev)
+    batches = graph_batches(x, y, lh, 2 * K + 1)
+    stacked = [tuple(torch.stack([b[j] for b in group]) for j in range(3))
+               for group in (batches[1:K + 1], batches[K + 1:])]
+    adv_w = torch.ones((), dtype=torch.float32, device=dev)
+    want = {k: K * n for k, n in per_step.items()}
+    runs, totals = {}, {k: 0 for k in per_step}
+    t_start = time.perf_counter()
+    states = init_models_and_states(hp, seed=0, device=dev)[4:]
+    for mode in ("eager", "graph"):
+        gstate, dstate = (copy.deepcopy(states) if mode == "eager"
+                          else states)
+        trainer = make_trainer(hp, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        outs = []
+        todo = batches if mode == "eager" else batches[:1]
+        for xb, yb, lb in todo:
+            reset_launch_counts()
+            outs.append(trainer.step(gstate, dstate, xb, yb, lb, R, adv_w,
+                                     gen)[2])
+            for k in totals:
+                totals[k] += launch_counts[k]
+        if mode == "graph":
+            for i, (xs, ys, ls) in enumerate(stacked):
+                reset_launch_counts()
+                _, _, got = trainer.multi_step(gstate, dstate, xs, ys, ls, R,
+                                               adv_w, gen)
+                counts = {k: launch_counts[k] for k in per_step}
+                print(f"[4i] {tag} dispatch {i + 1} "
+                      f"({'capture and ' if i == 0 else ''}replay): "
+                      f"launches {counts}")
+                if counts != want:
+                    fail(f"step {tag}: a replay of {K} steps launched "
+                         f"{counts}, expected {want}")
+                for k in totals:
+                    totals[k] += counts[k]
+                outs.extend({k: v[j] for k, v in got.items()}
+                            for j in range(K))
+        torch.cuda.synchronize()
+        runs[mode] = dict(states=(gstate, dstate), gen=gen, outs=outs,
+                          trainer=trainer,
+                          peak=torch.cuda.max_memory_allocated(dev))
+    eager, graph = runs["eager"], runs["graph"]
+    for j, (a, b) in enumerate(zip(eager["outs"], graph["outs"])):
+        for k in a:
+            if not torch.equal(a[k], b[k]) and not (
+                    torch.isnan(a[k]) and torch.isnan(b[k])):
+                fail(f"step {tag}, step {j}: {k} {float(a[k])!r} eager, "
+                     f"{float(b[k])!r} through the graph")
+    counted = [require_same_states(f"step {tag} {name}", a, b)
+               for name, a, b in zip(("generator", "discriminator"),
+                                     state_payloads(*eager["states"]),
+                                     state_payloads(*graph["states"]))]
+    if not torch.equal(eager["gen"].get_state(), graph["gen"].get_state()):
+        fail(f"step {tag}: the dropout generator's state differs")
+    (sg,) = graph["trainer"]._graphs.graphs.values()
+    print(f"[4i] {tag} {2 * K + 1} steps eager and through the graph (1 + "
+          f"2 x {K}): identical bits in {len(graph['outs'])} steps' "
+          f"{len(graph['outs'][0])} scalars, "
+          f"{sum(n for n, _ in counted)} parameters, "
+          f"{sum(n for _, n in counted)} optimizer values and the dropout "
+          f"generator's state; capture {sg.capture_seconds:.3f} s, its "
+          f"kernel nodes {sg.launches} read in {sg.count_seconds:.3f} s; peak "
+          f"memory eager {eager['peak'] / 2**30:.3f} GiB, graph "
+          f"{graph['peak'] / 2**30:.3f} GiB  [{card}]")
+
+    trainer = graph["trainer"]
+    gstate, dstate = graph["states"]
+    gen = graph["gen"]
+    xs, ys, ls = stacked[0]
+
+    def run_steps(n, fused):
+        for _ in range(n // K):
+            if fused:
+                trainer.multi_step(gstate, dstate, xs, ys, ls, R, adv_w, gen)
+            else:
+                for xb, yb, lb in batches[1:K + 1]:
+                    trainer.step(gstate, dstate, xb, yb, lb, R, adv_w, gen)
+    rounds = []
+    for _ in range(GRAPH_ROUNDS):
+        ms = []
+        for fused in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_steps(K, fused)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) / K * 1e3)
+        rounds.append(ms)
+    med = [sorted(r[i] for r in rounds)[len(rounds) // 2] for i in (0, 1)]
+    print(f"[4i] {tag} wall, ms/step with K = 1 and K = {K}, {GRAPH_ROUNDS} "
+          f"rounds of {K} steps: " + "; ".join(
+              f"{a:.3f}, {b:.3f}" for a, b in rounds) +
+          f"; medians {med[0]:.3f} and {med[1]:.3f}  [{card}]")
+    names = phase_profile(f"4i-{tag}", lambda n: run_steps(n, True), med[1],
+                          card, steps=K)
+    named = kernels_named(names or (), [k for k, n in per_step.items() if n])
+    print(f"[4i] {tag} the trace of a replay names the path's kernels: "
+          f"{named}")
+    if not all(named.values()):
+        fail(f"step {tag}: the trace of a replay does not name {named}")
+    print(f"[4i] {tag} took {time.perf_counter() - t_start:.1f} s")
+    return totals
 
 
 def _union_us(intervals):
@@ -1461,6 +1622,16 @@ KERNEL_GROUPS = (("sru_proj_gemm", ("proj_gemm",)),
                   ("gemm", "cutlass", "xmma", "cublas", "nvjet")))
 
 
+def kernels_named(names, kernels):
+    """For each of ``kernels`` (counter names), whether one of the device
+    event ``names`` of a trace is the kernel function its wrapper
+    launches."""
+    from gantts_tpu_torch.train.graphs import KERNEL_FUNCTIONS
+
+    return {k: any(KERNEL_FUNCTIONS[k].search(n) for n in names)
+            for k in kernels}
+
+
 def device_events(prof):
     """The device events of a torch.profiler trace: kernels, copies and
     fills.  Device-side copies of host ranges (record_function and the
@@ -1485,8 +1656,8 @@ def ms_by_name(events, calls):
     return per_name
 
 
-def phase_profile(tag, run_steps, ms_unprofiled, card):
-    """Trace PROFILE_STEPS more main-path steps with torch.profiler.
+def phase_profile(tag, run_steps, ms_unprofiled, card, steps=PROFILE_STEPS):
+    """Trace ``steps`` more main-path steps with torch.profiler.
 
     Device busy time is the union of the trace's device intervals (kernels,
     copies, fills; not annotations); the idle share is 1 - busy / the
@@ -1500,7 +1671,7 @@ def phase_profile(tag, run_steps, ms_unprofiled, card):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function("chip_smoke_steps"):
-            run_steps(PROFILE_STEPS)
+            run_steps(steps)
             torch.cuda.synchronize()
     span = [e for e in prof.events() if e.name == "chip_smoke_steps"]
     dev = device_events(prof)
@@ -1509,12 +1680,12 @@ def phase_profile(tag, run_steps, ms_unprofiled, card):
               f"measured  [{card}]")
         return None
     t0, t1 = span[0].time_range.start, span[0].time_range.end
-    wall = (t1 - t0) / 1e3 / PROFILE_STEPS
+    wall = (t1 - t0) / 1e3 / steps
     busy = _union_us([(e.time_range.start, e.time_range.end)
-                      for e in dev]) / 1e3 / PROFILE_STEPS
-    per_name = ms_by_name(dev, PROFILE_STEPS)
+                      for e in dev]) / 1e3 / steps
+    per_name = ms_by_name(dev, steps)
     summed = sum(per_name.values())
-    print(f"[{tag}P] {PROFILE_STEPS} traced steps: wall {wall:.3f} ms/step "
+    print(f"[{tag}P] {steps} traced steps: wall {wall:.3f} ms/step "
           f"(unprofiled {ms_unprofiled:.3f}), device busy {busy:.3f} "
           f"ms/step, idle share {1 - busy / wall:.4f} of the traced wall; "
           f"device events summed {summed:.3f} ms/step  [{card}]")
@@ -1837,6 +2008,101 @@ def phase_cli(card):
     return totals
 
 
+def phase_cli_dispatch(card):
+    """Phase 6b: the training command line with ``--steps-per-dispatch 1``
+    and at its default (16 on the card), two epochs each of (4c)'s
+    configuration at batch_size 2 on a synthetic corpus of 44 utterances
+    of 481-512 frames (17 train batches an epoch, all padded to 512: the
+    default fuses 16 of them), the default run with ``--profile-dir``.  Fails
+    unless the default run put steps in CUDA graph replays, both runs
+    launched the same kernels as often and logged the same values (the
+    wall-clock series apart), bit for bit, and unless the trace of epoch 2
+    names each kernel the run launched among the kernels that its graph
+    replays launched.  Returns the launch counts of both runs."""
+    from gantts_tpu_torch import hparams
+    from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from gantts_tpu_torch.train.__main__ import main as train_main
+
+    gp = dict(hparams.tts_acoustic.generator_params, bidirectional=False)
+    totals, runs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_acoustic_corpus(tmp, num=44, frames=(481, 513))
+        xdir, ydir = (os.path.join(tmp, d) for d in ("X_acoustic",
+                                                     "Y_acoustic"))
+        prof = os.path.join(tmp, "prof")
+        for tag, extra in (("1", ["--steps-per-dispatch=1"]),
+                           ("default", [f"--profile-dir={prof}"])):
+            ck = os.path.join(tmp, f"ck_{tag}")
+            argv = [xdir, ydir, "--hparams_name=tts_acoustic",
+                    f"--hparams=nepoch=2,batch_size=2,compute_dtype=bfloat16,"
+                    f"generator_params={gp!r}", "--w_d=1",
+                    f"--checkpoint-dir={ck}", f"--log-event-path={ck}/log",
+                    "--disable-slack", *extra]
+            out_path = os.path.join(tmp, f"{tag}.out")
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with open(out_path, "w") as out:
+                try:
+                    with contextlib.redirect_stdout(out), \
+                            plain_versions_forbidden():
+                        rc = train_main(argv)
+                except BaseException:
+                    out.flush()
+                    with open(out_path) as f:
+                        print("".join(f.readlines()[-40:]))
+                    raise
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = dict(launch_counts)
+            with open(out_path) as f:
+                steps, fused = dispatch_summary(f.read())
+            with open(os.path.join(ck, "log", "scalars.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            runs[tag] = (counts, rows)
+            print(f"[6b] --steps-per-dispatch {tag}: exit {rc}, {dt:.2f} s, "
+                  f"{fused} steps in CUDA graph replays (of {steps} when "
+                  f"fused), launches { {k: n for k, n in counts.items() if n} }"
+                  f"  [{card}]")
+            if rc != 0:
+                fail(f"the training command line exited {rc}")
+            for k, n in counts.items():
+                totals[k] = totals.get(k, 0) + n
+        if not fused:
+            fail("at its default the command line ran no CUDA graph")
+        timing = ("frames_per_sec", "epoch_seconds")
+        (c1, r1), (c2, r2) = runs["1"], runs["default"]
+        if c1 != c2:
+            fail(f"launches differ: {c1} with 1 step a dispatch, {c2} at the "
+                 f"default")
+        a, b = ([(r["tag"], r["step"], r["value"]) for r in rows
+                 if not r["tag"].endswith(timing)] for rows in (r1, r2))
+        if a != b or not a:
+            diff = [(x, y) for x, y in zip(a, b) if x != y][:3]
+            fail(f"the logged series differ: {diff}")
+        print(f"[6b] {len(a)} logged values, the same bits with 1 step a "
+              f"dispatch and at the default (wall-clock series apart)")
+        with open(os.path.join(prof, "trace_epoch2.json")) as f:
+            events = json.load(f)["traceEvents"]
+        # a kernel a replay ran carries its cudaGraphLaunch's correlation
+        launches = {e.get("args", {}).get("correlation") for e in events
+                    if "GraphLaunch" in e.get("name", "")
+                    and e.get("cat") != "kernel"}
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        replayed = {e.get("name", "") for e in kernels
+                    if e.get("args", {}).get("correlation") in launches}
+        named = kernels_named(replayed, [k for k, n in c2.items() if n])
+        print(f"[6b] --profile-dir of an epoch in graph replays: "
+              f"{len(kernels)} kernel events of "
+              f"{len({e.get('name') for e in kernels})} names, "
+              f"{len(launches)} graph launches, {len(replayed)} names "
+              f"launched by them; the port's kernels among those: {named}"
+              f"  [{card}]")
+        if not all(named.values()):
+            fail(f"the trace of an epoch in graph replays does not name "
+                 f"each kernel among those its replays launched: {named}")
+    return totals
+
+
 def check_profile(prof, card):
     """Phase 6's ``--profile-dir``: one Chrome trace, of epoch 2, whose
     device events name the SRU kernels the configuration launches."""
@@ -1859,7 +2125,10 @@ def check_profile(prof, card):
         fail(f"the profile's kernels do not name {named}")
 
 
-def write_duration_corpus(dst, num=96, phones=(20, 81), seed=0):
+DUR_UTTERANCES = 640  # phase 7: 18 train batches of DUR_B an epoch
+
+
+def write_duration_corpus(dst, num=DUR_UTTERANCES, phones=(20, 81), seed=0):
     """A synthetic phone-level corpus in the repository's on-disk layout
     (tests/make_synthetic_data.py --kind duration, which this script cannot
     call: it imports the JAX package): ``dst/X_duration`` with
@@ -1879,7 +2148,18 @@ def write_duration_corpus(dst, num=96, phones=(20, 81), seed=0):
         np.save(os.path.join(dst, "Y_duration", name), dur.astype(np.float32))
 
 
-def run_curriculum(tag, argv, env, plan, per_step, per_train_step, n_steps):
+def dispatch_summary(text):
+    """(steps, steps in graph replays) over the training loop's per-phase
+    dispatch lines in a command's output."""
+    import re
+
+    rows = re.findall(r"phase: (\d+) steps, (\d+) of them in \d+ "
+                      r"dispatches of \d+", text)
+    return sum(int(a) for a, _ in rows), sum(int(b) for _, b in rows)
+
+
+def run_curriculum(tag, argv, env, plan, per_step, per_train_step, n_steps,
+                   need_graphs=False):
     """``python -m gantts_tpu_torch.curriculum``'s main() on ``argv`` with
     the switches of ``env``, every plain version refused; each stage's
     launches are read around its call of the training main().  ``plan``:
@@ -1888,7 +2168,9 @@ def run_curriculum(tag, argv, env, plan, per_step, per_train_step, n_steps):
     test), ``per_train_step``: those in each train step that trains the
     generator; ``n_steps``: the steps of an epoch's train and test phases.
     The command lines' own output goes to a log, whose tail is printed if a
-    stage fails.  Returns the launch counts of all stages."""
+    stage fails; the steps that ran in CUDA graph replays are read from it
+    and printed (with ``need_graphs``, some must have).  Returns the launch
+    counts of all stages."""
     from unittest import mock
 
     from gantts_tpu_torch import curriculum
@@ -1917,6 +2199,13 @@ def run_curriculum(tag, argv, env, plan, per_step, per_train_step, n_steps):
             print("".join(out.readlines()[-40:]))
             raise
         dt = time.perf_counter() - t0
+        out.flush()
+        out.seek(0)
+        steps, fused = dispatch_summary(out.read())
+    print(f"[{tag}] {steps} steps with --steps-per-dispatch at its default, "
+          f"{fused} of them in CUDA graph replays")
+    if need_graphs and not fused:
+        fail(f"[{tag}] no step ran in a CUDA graph replay")
     print(f"[{tag}] curriculum exit {rc}, {len(stages)} stages, {dt:.2f} s "
           f"({n_steps['train']} train and {n_steps['test']} test steps an "
           f"epoch)")
@@ -1980,14 +2269,16 @@ def curriculum_env(**switches):
 
 def phase_curriculum(card):
     """Phase 7: the curriculum command with the full-width tts_duration
-    bundle (bf16 matmuls) on a synthetic corpus of 96 phone sequences
-    (416 -> 5 dims) in a temporary directory, with train_gan.sh's default
+    bundle (bf16 matmuls) on a synthetic corpus of DUR_UTTERANCES phone
+    sequences (416 -> 5 dims; 18 train batches an epoch, nearly all padded
+    to 96 phones, so that the loop's default of 16 steps a dispatch runs
+    CUDA graphs) in a temporary directory, with train_gan.sh's default
     switches: stages 1-3 and 5 (baseline to epoch 2, generator warm-up 1
     epoch, discriminator warm-up 1 epoch, adversarial epoch 2 from both
     warm-ups).  Each stage must launch 12 sru_proj_gemm and 12 sru_fwd_scan
-    per step, 12 sru_bwd_scan per step that trains the generator.  Checks
-    every checkpoint and that the logged values are finite.  Returns the
-    launch counts of all stages."""
+    per step, 12 sru_bwd_scan per step that trains the generator, and some
+    steps must run in graph replays.  Checks every checkpoint and that the
+    logged values are finite.  Returns the launch counts of all stages."""
     with tempfile.TemporaryDirectory() as tmp:
         write_duration_corpus(tmp)
         xdir, ydir = (os.path.join(tmp, d) for d in ("X_duration",
@@ -1999,7 +2290,7 @@ def phase_curriculum(card):
             "7", ["tts_duration", "compute_dtype=bfloat16", xdir, ydir, ck,
                   "1", "1", "1", "2"], curriculum_env(), plan,
             dict(sru_proj_gemm=12, sru_fwd_scan=12), dict(sru_bwd_scan=12),
-            epoch_steps(xdir, DUR_B))
+            epoch_steps(xdir, DUR_B), need_graphs=True)
         require_checkpoints(ck, (
             "baseline/checkpoint_epoch2_Generator.pth",
             "gan/checkpoint_epoch1_Generator.pth",
@@ -2097,35 +2388,43 @@ def write_vc_corpus(dst, num=30, frames=(256, 501), seed=0):
     return time.perf_counter() - t0
 
 
+VC_UTTERANCES = 45    # phase 8: 35 train utterances, the 5 held out
+VC_FRAMES = (224, 256)  # analysed to 225-256 frames: one bucket, T = 256
+VC_SPEC = "generator=In2OutRNNHighwayNet,batch_size=2"  # phases 8 and 11
+
+
 def phase_vc_curriculum(card, tmp):
     """Phase 8: the curriculum command with the vc bundle in its own
     float32 and ``generator=In2OutRNNHighwayNet`` at full width (3x512
-    unidirectional LSTM, 177 -> 177), on write_vc_corpus's 30 utterances in
-    ``tmp``, through all five stages (``RUN_SPOOFING_MODEL=1``): baseline to
+    unidirectional LSTM, 177 -> 177) at batch_size 2 (VC_SPEC), on
+    write_vc_corpus's VC_UTTERANCES utterances of VC_FRAMES in ``tmp`` (18
+    train batches an epoch, all padded to 256, so that the loop's default
+    of 16 steps a dispatch runs CUDA graphs in every stage's train phase),
+    through all five stages (``RUN_SPOOFING_MODEL=1``): baseline to
     epoch 2, generator warm-up 1 epoch, discriminator warm-up 1 epoch, the
     spoofing model 2 epochs against the baseline generator, adversarial
     epoch 2 with the spoofing model as its reference discriminator.  Each
     stage must launch 3 sru_proj_gemm and 3 lstm_fwd_scan per step (the
     f32 flag design), 3 lstm_bwd_scan per step that trains the
-    generator.  Checks every checkpoint, that the logged values are finite
-    and that stage 5 logged the spoofing rate.  Returns the launch counts
-    of all stages and the final generator's checkpoint."""
-    from gantts_tpu_torch import hparams
+    generator, and some steps must run in graph replays.  Checks every
+    checkpoint, that the logged values are finite and that stage 5 logged
+    the spoofing rate.  Returns the launch counts of all stages and the
+    final generator's checkpoint."""
     from gantts_tpu_torch.frontend import native
 
-    secs = write_vc_corpus(tmp)
-    print(f"[8] corpus: 30 utterances analysed in {secs:.2f} s by the "
-          f"{native.engine()} front end")
+    secs = write_vc_corpus(tmp, num=VC_UTTERANCES, frames=VC_FRAMES)
+    print(f"[8] corpus: {VC_UTTERANCES} utterances analysed in {secs:.2f} s "
+          f"by the {native.engine()} front end")
     xdir, ydir = (os.path.join(tmp, d) for d in ("X", "Y"))
     ck = os.path.join(tmp, "ck")
     plan = [("baseline", 2, True), ("generator_warmup", 1, True),
             ("discriminator_warmup", 1, False), ("spoofing_model", 2, False),
             ("adversarial", 1, True)]
     totals = run_curriculum(
-        "8", ["vc", "generator=In2OutRNNHighwayNet", xdir, ydir, ck, "1",
-              "1", "2", "2"], curriculum_env(RUN_SPOOFING_MODEL="1"), plan,
+        "8", ["vc", VC_SPEC, xdir, ydir, ck, "1", "1", "2", "2"],
+        curriculum_env(RUN_SPOOFING_MODEL="1"), plan,
         dict(sru_proj_gemm=3, lstm_fwd_scan=3), dict(lstm_bwd_scan=3),
-        epoch_steps(xdir, hparams.vc.batch_size))
+        epoch_steps(xdir, 2), need_graphs=True)
     final = "gan/checkpoint_epoch2_Generator.pth"
     require_checkpoints(ck, (
         "baseline/checkpoint_epoch2_Generator.pth",
@@ -2542,8 +2841,8 @@ def phase_tts_demo(card, tmp):
     epoch, discriminator warm-up 1 epoch, adversarial epoch 2), 12
     sru_proj_gemm and 12 sru_fwd_scan a step and 12 sru_bwd_scan a step
     that trains the generator; then evaluation_tts on the baseline and on
-    the adversarial generators with 4 threads, and without the duration
-    model on one (tts_eval_run), and the first utterance's predictions
+    the adversarial generators, and on the adversarial one without the
+    duration model, each with 4 threads (tts_eval_run), and the first utterance's predictions
     against the CPU (check_tts_predictions).  Returns the launch counts of
     all of it."""
     from gantts_tpu_torch import hparams
@@ -2586,12 +2885,10 @@ def phase_tts_demo(card, tmp):
         ckpts[typ] = ck
     labels = os.path.join(root, "label_state_align")
     first = None
-    # the last run on one thread: the host chain's Python (freqt's loop,
-    # the questions' regexes) holds the GIL, so threads may not pay
     for tag, stage, workers, extra in (
             ("baseline", "baseline/checkpoint_epoch2", 4, []),
             ("gan", "gan/checkpoint_epoch2", 4, []),
-            ("gan_label_timings", "gan/checkpoint_epoch2", 1,
+            ("gan_label_timings", "gan/checkpoint_epoch2", 4,
              ["--disable-duraton-gen"])):
         paths = {typ: os.path.join(ck, f"{stage}_Generator.pth")
                  for typ, ck in ckpts.items()}
@@ -2608,8 +2905,9 @@ def phase_tts_demo(card, tmp):
 RESUMES = (  # tag, hparams name, spec, corpus dirs, checkpoints, reference D
     ("tts", "tts_acoustic", "compute_dtype=float32",
      ("feats/X_acoustic", "feats/Y_acoustic"), "ck_acoustic/gan", None),
-    ("vc", "vc", "generator=In2OutRNNHighwayNet", ("X", "Y"), "ck/gan",
+    ("vc", "vc", VC_SPEC, ("X", "Y"), "ck/gan",
      "ck/spoofing_model/checkpoint_epoch2_Discriminator.pth"))
+GRAPH_RESUMES = ("vc",)  # pairs whose train phase must run CUDA graphs
 DUR_SPEC = "compute_dtype=float32"  # phase 10's tts_duration
 EVAL_UTTERANCES = 7  # the split's least: 1 eval and the 5 held-out test
 
@@ -2823,6 +3121,12 @@ def check_resume_pair(card, tag, jobs, n_steps, per_step, per_train_step,
     for fmt, ck, job, log in jobs:
         counts, secs, startup, _ = finish_cli_process(f"{tag} {fmt}", job,
                                                        log)
+        with open(log + ".out") as f:
+            steps, fused = dispatch_summary(f.read())
+        print(f"[11a] {tag} epoch 3 from {fmt} files: {fused} of {steps} "
+              f"steps in CUDA graph replays")
+        if tag in GRAPH_RESUMES and not fused:
+            fail(f"[11a] {tag} {fmt}: no step ran in a CUDA graph replay")
         for k in set(counts) | set(want):
             n = counts.get(k, 0)
             if n != want.get(k, 0):
@@ -3209,13 +3513,14 @@ def phase_jax_files(dev, card, vc_tmp, tts_tmp):
     for k, n in launch_counts.items():
         totals[k] = totals.get(k, 0) + n
 
-    for (tag, hp_name, _, dirs, _, _), per in zip(RESUMES, (
+    for (tag, hp_name, spec, dirs, _, _), per in zip(RESUMES, (
             (dict(sru_proj_gemm=12, sru_fwd_scan=12), dict(sru_bwd_scan=12)),
             (dict(sru_proj_gemm=3, lstm_fwd_scan=3),
              dict(lstm_bwd_scan=3)))):
         tmp = tts_tmp if tag == "tts" else vc_tmp
-        n_steps = epoch_steps(os.path.join(tmp, dirs[0]),
-                              getattr(hparams, hp_name).batch_size)
+        hp = getattr(hparams, hp_name).copy()
+        hp.parse(spec)
+        n_steps = epoch_steps(os.path.join(tmp, dirs[0]), hp.batch_size)
         counts = check_resume_pair(card, tag, started[tag], n_steps, *per,
                                    twins[tag][1])
         if tag == "tts":
@@ -3388,6 +3693,11 @@ def main():
     for path in main_paths():
         for k, n in run_path(dev, card, *path).items():
             launches[k] += n
+    for tag, hp, per_step, _, make_batch, _ in main_paths():
+        with plain_versions_forbidden():
+            for k, n in phase_graphs(dev, card, tag, hp, per_step,
+                                     make_batch).items():
+                launches[k] += n
     for tag, hp in SMALL_ACOUSTIC_STEPS.items():
         phase_small_step(dev, tag, hp())
     phase_small_step(dev, "5d", duration_hp(
@@ -3396,6 +3706,8 @@ def main():
         "float32", "In2OutRNNHighwayNet", num_hidden=2, hidden_dim=64,
         dropout=0.0), probe=in2out_probe)
     for k, n in phase_cli(card).items():
+        launches[k] += n
+    for k, n in phase_cli_dispatch(card).items():
         launches[k] += n
     for k, n in phase_curriculum(card).items():
         launches[k] += n

@@ -23,14 +23,22 @@ checkpoints and the JAX package's flax msgpack ones (parameters, and the
 optax state carried into torch.optim's; see ``checkpoint.py``).  A legacy
 pickle checkpoint is refused: this program executes no code from a file.
 
-``--profile-dir`` writes a torch.profiler Chrome trace of the second epoch
-of the run (the first pays for building and loading the kernels);
-``--debug-nans`` stops at the first non-finite gradient norm or loss with a
-``FloatingPointError`` that names the epoch, phase, batch and quantity.
+``--steps-per-dispatch N`` runs N consecutive training steps of the same
+shapes as one dispatch: on the card, one replay of a CUDA graph of N steps
+(train/loop.py, train/graphs.py), equal bit for bit to N eager steps.  0
+(the default) is 16 on ``cuda``, as train.py's auto on one device, and 1
+on ``--device cpu``, where there are no graphs (train.py's path without
+multi-step dispatch); N > 1 with ``--device cpu`` is an error.
 
-Not here: ``--steps-per-dispatch`` and train.py's multi-device flags
-(``--num-devices``, ``--distributed`` and the coordinator's), and its
-compile-cache environment switch, a TPU matter.
+``--profile-dir`` writes a torch.profiler Chrome trace of the second epoch
+of the run (the first pays for building and loading the kernels and for
+capturing the graphs); ``--debug-nans`` stops at the first non-finite
+gradient norm or loss with a ``FloatingPointError`` that names the epoch,
+phase, batch and quantity, and runs one eager step at a time.
+
+Not here: train.py's multi-device flags (``--num-devices``,
+``--distributed`` and the coordinator's), and its compile-cache environment
+switch, a TPU matter.
 """
 
 from __future__ import annotations
@@ -73,20 +81,55 @@ def build_arg_parser():
                    action="store_true",
                    help="accepted so that reference command lines parse; "
                         "this program posts no message")
+    p.add_argument("--steps-per-dispatch", dest="steps_per_dispatch",
+                   type=int, default=0,
+                   help="training steps of the same shapes run as one "
+                        "dispatch (one CUDA graph replay), bit-identical "
+                        "to unfused. 0 = auto: 16 on cuda, 1 on cpu and "
+                        "under --debug-nans")
     p.add_argument("--profile-dir", dest="profile_dir", default=None,
                    help="capture a torch.profiler trace of one epoch here")
     p.add_argument("--debug-nans", dest="debug_nans", action="store_true",
                    help="fail fast on the first NaN/Inf (gradient norm or "
-                        "loss)")
+                        "loss); one eager step at a time")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: cuda)")
     return p
 
 
+def steps_per_dispatch(requested, device, debug_nans):
+    """The K that ``--steps-per-dispatch`` asks for on ``device``: 0 is
+    auto (16 on cuda, 1 on cpu); 1 under ``--debug-nans``.  K > 1 needs
+    CUDA graphs, so it is refused on any other device."""
+    import torch
+
+    kind = torch.device(device).type
+    if requested < 0:
+        raise ValueError(f"--steps-per-dispatch {requested}: not a count")
+    if requested > 1 and kind != "cuda":
+        raise ValueError(
+            f"--steps-per-dispatch {requested} needs CUDA graphs: device "
+            f"{device!r} runs one step at a time (1, or 0 for auto)")
+    if debug_nans:
+        return 1
+    if requested == 0:
+        return 16 if kind == "cuda" else 1
+    return requested
+
+
 def main(argv=None):
     since = time.time()
-    args = build_arg_parser().parse_args(argv)
+    parser = build_arg_parser()
+    args = parser.parse_args(argv)
     print("Command line args:\n", vars(args))
+    try:
+        spd = steps_per_dispatch(args.steps_per_dispatch, args.device,
+                                 args.debug_nans)
+    except ValueError as e:
+        parser.error(str(e))
+    if args.debug_nans:
+        print("--debug-nans: one eager step at a time "
+              "(--steps-per-dispatch 1)")
 
     from gantts_tpu_torch import hparams
     from gantts_tpu_torch.hparams import hparams_debug_string
@@ -168,13 +211,14 @@ def main(argv=None):
     trainer = GanTrainer(cfg, Y_mean, Y_std, args.device,
                          model_ref=model_ref, windows=hp.windows)
 
-    print(f"Start training from epoch {global_epoch}")
+    print(f"Start training from epoch {global_epoch}, {spd} step(s) a "
+          f"dispatch")
     gstate, dstate, final_epoch = train_loop(
         trainer, gstate, dstate, loaders, hp, w_d=w_d, mse_w=mse_w,
         mge_w=mge_w, update_d=update_d, update_g=update_g,
         checkpoint_dir=args.checkpoint_dir, writer=writer,
         global_epoch=global_epoch, profile_dir=args.profile_dir,
-        debug_nans=args.debug_nans)
+        debug_nans=args.debug_nans, steps_per_dispatch=spd)
 
     for state, enabled, name in [(gstate, update_g, "Generator"),
                                  (dstate, cfg.update_d, "Discriminator")]:

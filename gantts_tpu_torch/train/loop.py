@@ -6,23 +6,37 @@ dynamic adversarial weight ``adv_w = w_d * clip(E_mge / E_adv, 0, 1e3)``
 carried from one train phase to the next, the same logged series, and
 ``checkpoint_epoch{N}_{Generator|Discriminator}.pth`` every
 CHECKPOINT_INTERVAL epochs.  As in the JAX package, the MLPG matrix R is
-built once per bucketed length and kept on the device, and the per-batch
-scalars stay on the device until the end of the phase: the host reads them
-once per phase, so it never waits inside the batch loop.  Each phase logs its
-valid frames per second and its wall time.
+built once per bucketed length and kept on the device, ``adv_w`` is
+uploaded once a phase, and the per-batch scalars stay on the device until
+the end of the phase: the host reads them once per phase, so it never waits
+inside the batch loop.  Batches reach the card from pinned host memory,
+without blocking.  Each phase logs its valid frames per second and its wall
+time.
+
+Multi-step dispatch (``steps_per_dispatch`` K, the CLI's
+``--steps-per-dispatch``), with the JAX package's semantics: consecutive
+batches with the same shapes are taken in groups of K, and each group runs
+as one ``GanTrainer.multi_step`` (on the card, one replay of a CUDA graph of
+K steps); a change of shapes or the end of a phase flushes the pending
+batches, full groups fused and the rest one step at a time, in order, with
+the dropout generator and the noise drawn as the unfused run draws them
+(``dispatch_groups``).  The first batch of shapes the run has not met in
+this phase kind runs alone and eagerly: it is the warm-up a capture needs,
+and a real step.
 
 Two debugging aids, off by default (the CLI's ``--profile-dir`` and
 ``--debug-nans``):
 
   * ``profile_dir``: the second epoch of the run, ``global_epoch + 2`` (the
-    first pays for building and loading the kernels), train and test
-    phases, is traced by torch.profiler (CPU and, on the card, CUDA
-    activity) into one Chrome trace ``profile_dir/trace_epoch{N}.json``;
-  * ``debug_nans``: the optimizers raise ``FloatingPointError`` on a
-    gradient norm that is not finite, and each step's losses are read and
-    checked, the error naming the epoch, phase, batch and quantity.  This
-    adds host synchronisations in every step; without it the loop adds
-    none.
+    first pays for building and loading the kernels and capturing the
+    graphs), train and test phases, is traced by torch.profiler (CPU and,
+    on the card, CUDA activity) into one Chrome trace
+    ``profile_dir/trace_epoch{N}.json``;
+  * ``debug_nans``: after each step, one read of the optimizers' gradient
+    norms and the step's losses raises ``FloatingPointError`` on the first
+    that is not finite, naming the epoch, phase, batch and quantity.  It
+    runs one eager step at a time (K = 1) and adds one host
+    synchronisation a step; without it the loop adds none.
 
 Randomness: the generator's input noise z comes from ``RandomState(seed)``
 on the host, as in the JAX package, so both draw the same z; dropout masks
@@ -72,14 +86,68 @@ LOSSES = ("discriminator", "loss_real_d", "loss_fake_d", "mse", "mge",
           "loss_adv", "generator")
 
 
-def _require_finite_losses(out, where):
+def _require_finite_losses(out, where, norms=()):
+    """One read of ``norms`` ((name, device scalar) of each optimizer that
+    stepped) and the step's losses; raises ``FloatingPointError`` naming
+    the first that is not finite."""
     keys = [k for k in LOSSES if k in out]
-    finite = torch.isfinite(torch.stack([out[k].float() for k in keys]))
-    bad = [k for k, ok in zip(keys, finite.tolist()) if not ok]
+    names = [f"{name}'s gradient norm" for name, _ in norms] + \
+        [f"{k} loss" for k in keys]
+    values = [n.float() for _, n in norms] + [out[k].float() for k in keys]
+    finite = torch.isfinite(torch.stack(values)).tolist()
+    bad = [n for n, ok in zip(names, finite) if not ok]
     if bad:
         raise FloatingPointError(
-            f"{where}: the {bad[0]} loss is not finite (not finite: "
+            f"{where}: the {bad[0]} is not finite (not finite: "
             f"{', '.join(bad)})")
+
+
+def dispatch_groups(batches, key, K, warm):
+    """The dispatches of a phase's ``batches``, in order: lists of K
+    batches that run as one fused dispatch, and lists of one.  Consecutive
+    batches with the same ``key(batch)`` are taken in groups of K; a change
+    of key or the end flushes the pending batches, the rest one at a time.
+    With K > 1, the first batch of a key not in ``warm`` runs alone (the
+    warm-up of a capture) and its key joins ``warm``."""
+    pend, pend_key = [], None
+    for batch in batches:
+        k = key(batch)
+        if pend and k != pend_key:
+            yield from ([b] for b in pend)
+            pend = []
+        if K > 1 and k not in warm:
+            warm.add(k)
+            yield [batch]
+            continue
+        pend.append(batch)
+        pend_key = k
+        if len(pend) == K:
+            yield pend
+            pend = []
+    yield from ([b] for b in pend)
+
+
+class _Stager:
+    """Host arrays onto the trainer's device: from pinned memory without
+    blocking on the card, as they are on the CPU."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.pin = self.device.type == "cuda"
+
+    def host(self, arrays):
+        """The arrays stacked on a new leading axis, in (pinned) host
+        memory."""
+        first = np.asarray(arrays[0])
+        out = torch.empty((len(arrays),) + first.shape,
+                          dtype=torch.from_numpy(first).dtype,
+                          pin_memory=self.pin)
+        for k, a in enumerate(arrays):
+            out[k].copy_(torch.from_numpy(np.asarray(a)))
+        return out
+
+    def put(self, arrays):
+        return self.host(arrays).to(self.device, non_blocking=True)
 
 
 def _start_profile(device):
@@ -102,39 +170,36 @@ def _stop_profile(prof, profile_dir, epoch):
     return path
 
 
-def _phase_sums(outs):
-    """Sum each per-batch device scalar over the phase, read with one copy
-    to the host."""
-    keys = list(outs[0])
-    stacked = torch.stack([torch.stack([o[k].double() for k in keys])
-                           for o in outs])
-    return dict(zip(keys, stacked.sum(0).tolist()))
+def _phase_sums(acc):
+    """Sum each key's per-step device scalars over the phase, in step
+    order, read with one copy to the host.  ``acc``: key -> list of 1-D
+    tensors of consecutive steps."""
+    keys = list(acc)
+    steps = torch.stack([torch.cat(acc[k]).double() for k in keys])
+    return dict(zip(keys, steps.sum(1).tolist()))
 
 
 def train_loop(trainer, gstate, dstate, dataset_loaders, hp, w_d=0.0,
                mse_w=0.0, mge_w=1.0, update_d=True, update_g=True,
                checkpoint_dir=None, writer=None, global_epoch=0, seed=1234,
-               profile_dir=None, debug_nans=False):
+               profile_dir=None, debug_nans=False, steps_per_dispatch=1):
     """Train epochs global_epoch + 1 .. hp.nepoch.  ``trainer`` is a
     GanTrainer (with its reference discriminator when ``has_ref``); the
-    states are updated in place.  Returns (gstate, dstate, final_epoch)."""
+    states are updated in place; ``steps_per_dispatch``: K, 1 under
+    ``debug_nans``.  Returns (gstate, dstate, final_epoch)."""
     cfg = trainer.cfg
     device = trainer.device
     r_cache = RMatrixCache(hp.windows, device) if cfg.has_dynamic else None
     noise_rs = np.random.RandomState(seed)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    stage = _Stager(device)
+    K = 1 if debug_nans else max(1, int(steps_per_dispatch))
+    warm = set()  # (phase, shapes) that have taken an eager step
 
     E_loss_mge = 1.0
     E_loss_adv = 1.0
     log = writer.log_value if writer is not None else (lambda *a: None)
-
-    def put(a):
-        return torch.as_tensor(a, device=device)
-
-    if debug_nans:
-        gstate.optimizer.check_finite = "generator"
-        dstate.optimizer.check_finite = "discriminator"
     traced = None
 
     for epoch in range(global_epoch + 1, hp.nepoch + 1):
@@ -155,26 +220,58 @@ def train_loop(trainer, gstate, dstate, dataset_loaders, hp, w_d=0.0,
             phase_t0 = time.perf_counter()
             adv_w = adv_weight(w_d, E_loss_mge, E_loss_adv) \
                 if update_g else 0.0
-            outs = []
-            for i, (x, y, lengths) in enumerate(dataset_loaders[phase]):
+            # constant within the phase: on the device once
+            adv_w_dev = torch.full((), adv_w, dtype=torch.float32,
+                                   device=device)
+            norms = [(name, opt) for name, opt, on in (
+                ("discriminator", dstate.optimizer, cfg.update_d),
+                ("generator", gstate.optimizer, cfg.update_g)) if on
+                and train]
+            acc = {}
+            count = fused = 0
+
+            def with_noise(batch):
+                x = batch[0]
                 z = (noise_rs.rand(x.shape[0], x.shape[1],
                                    hp.generator_noise_dim)
                      .astype(np.float32) if cfg.add_noise else None)
-                R = r_cache.get(x.shape[1]) if r_cache is not None else None
-                where = f"epoch {epoch}, {phase} phase, batch {i}"
-                try:
-                    gstate, dstate, out = trainer.step(
-                        gstate, dstate, put(x), put(y), put(lengths), R,
-                        adv_w, generator=gen, train=train,
-                        z=put(z) if z is not None else None)
-                except FloatingPointError as e:
-                    raise FloatingPointError(f"{where}: {e}") from e
-                if debug_nans:
-                    _require_finite_losses(out, where)
-                outs.append(out)
+                return batch + (z,)
 
-            sums = _phase_sums(outs)  # the phase's one host sync
+            batches = (with_noise(b) for b in dataset_loaders[phase])
+            for group in dispatch_groups(
+                    batches, lambda b: (phase, b[0].shape, b[1].shape), K,
+                    warm):
+                xs, ys, ls, zs = ([b[j] for b in group] for j in range(4))
+                R = r_cache.get(xs[0].shape[1]) if r_cache is not None \
+                    else None
+                where = f"epoch {epoch}, {phase} phase, batch {count}"
+                if len(group) == 1:
+                    gstate, dstate, out = trainer.step(
+                        gstate, dstate, stage.put(xs)[0], stage.put(ys)[0],
+                        stage.put(ls)[0], R, adv_w_dev, generator=gen,
+                        train=train,
+                        z=stage.put(zs)[0] if cfg.add_noise else None)
+                    if debug_nans:
+                        _require_finite_losses(out, where, [
+                            (name, opt.grad_norm) for name, opt in norms])
+                    out = {k: v.reshape(1) for k, v in out.items()}
+                else:  # the stacked batch stays on the host: a graph
+                    # copies it into its static inputs without blocking
+                    gstate, dstate, out = trainer.multi_step(
+                        gstate, dstate, stage.host(xs), stage.host(ys),
+                        stage.host(ls), R, adv_w_dev, generator=gen,
+                        train=train,
+                        zs=stage.host(zs) if cfg.add_noise else None)
+                    fused += len(group)
+                for k, v in out.items():
+                    acc.setdefault(k, []).append(v)
+                count += len(group)
+
+            sums = _phase_sums(acc)  # the phase's one host sync
             phase_dt = time.perf_counter() - phase_t0
+            if K > 1:
+                print(f"epoch {epoch}, {phase} phase: {count} steps, "
+                      f"{fused} of them in {fused // K} dispatches of {K}")
             total_num_frames = sums.pop("num_frames", 1.0)
 
             log(f"{phase} frames_per_sec", total_num_frames / phase_dt, epoch)

@@ -23,7 +23,12 @@ through the stencil MLPG of ``core/fast_mlpg.py``, from the trainer's
 package; the stencil reaches them through synthesis.
 
 The step returns its losses and counts as 0-dim device tensors, so nothing
-waits for the device until the caller reads them.
+waits for the device until the caller reads them.  The adversarial weight
+may be a float or a 0-dim float32 tensor (the training loop uploads it once
+a phase, and a CUDA graph reads it from there); the product is the same.
+``GanTrainer.multi_step`` takes K same-shape batches stacked on a leading
+axis: on the card one replay of a CUDA graph of K steps (train/graphs.py),
+elsewhere K eager steps, which are its reference.
 """
 
 from __future__ import annotations
@@ -217,6 +222,7 @@ class GanTrainer:
                                       device=self.device)
         self.Y_std = torch.as_tensor(Y_std, dtype=torch.float32,
                                      device=self.device)
+        self._graphs = None
 
     def _gen_forward(self, model_g, x, R, lengths, generator):
         if include_parameter_generation(model_g):
@@ -244,6 +250,31 @@ class GanTrainer:
         with torch.set_grad_enabled(train):
             return self._step(gstate, dstate, x, y, lengths, R, adv_w,
                               generator, train, z)
+
+    def multi_step(self, gstate, dstate, xs, ys, lengths, R, adv_w,
+                   generator=None, train=True, zs=None):
+        """K steps on K same-shape batches stacked on a leading axis (xs
+        (K, B, T, ·), ys, lengths (K, B), zs), in order, with the generator
+        drawn as K ``step`` calls draw it; returns ``(gstate, dstate,
+        outs)`` with each of ``outs`` (K,).  On a CUDA device the K steps
+        are one replay of a CUDA graph (captured at a dispatch of new
+        shapes; the states must have taken an eager step first), and the
+        inputs may lie on the host (pinned: copied without blocking);
+        elsewhere they are K eager steps."""
+        if self.device.type == "cuda":
+            if self._graphs is None:
+                from gantts_tpu_torch.train.graphs import StepGraphs
+
+                self._graphs = StepGraphs(self.device)
+            return gstate, dstate, self._graphs.run(
+                self, gstate, dstate, xs, ys, lengths, R, adv_w, generator,
+                train, zs)
+        outs = [self.step(gstate, dstate, xs[k], ys[k], lengths[k], R, adv_w,
+                          generator=generator, train=train,
+                          z=None if zs is None else zs[k])[2]
+                for k in range(xs.shape[0])]
+        return gstate, dstate, {key: torch.stack([o[key] for o in outs])
+                                for key in outs[0]}
 
     def _step(self, gstate, dstate, x, y, lengths, R, adv_w, generator,
               train, z):

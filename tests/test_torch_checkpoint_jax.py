@@ -888,19 +888,15 @@ def test_without_debug_nans_the_nan_corpus_trains_on(nan_corpus, tmp_path):
 
 
 @pytest.mark.parametrize("bad", [float("nan"), float("inf")])
-def test_clipped_optimizer_check_finite(bad):
-    """With check_finite a gradient norm that is not finite raises
-    FloatingPointError naming the quantity, and nothing is updated;
-    without it the step runs, as torch's clip does."""
+def test_clipped_optimizer_steps_through_a_nonfinite_norm(bad):
+    """The optimizer never reads the gradient norm on the host: a norm
+    that is not finite is kept on the device and the step runs, as
+    torch's clip does (only the loop's --debug-nans read stops it)."""
     p = torch.nn.Parameter(torch.ones(3))
     opt = create_optimizer("Adagrad", dict(lr=0.01), [p])
     p.grad = torch.tensor([1.0, bad, 0.0])
-    opt.check_finite = "generator"
-    with pytest.raises(FloatingPointError, match="generator's gradient"):
-        opt.step()
-    assert torch.equal(p.detach(), torch.ones(3))
-    opt.check_finite = None
     opt.step()
+    assert not torch.isfinite(opt.grad_norm)
     assert not torch.isfinite(p.detach()).all()
 
 
@@ -916,16 +912,27 @@ def test_debug_nans_names_the_loss():
 
 @pytest.mark.parametrize("debug_nans", [False, True])
 def test_debug_nans_alone_reads_the_norm(corpus, tmp_path, debug_nans):
-    """Only with the flag do the optimizers ask torch's clip for
-    error_if_nonfinite (which reads the norm on the host); without it the
-    step is the one the loop always took."""
-    seen = []
+    """Only with the flag does the loop read the gradient norms (and the
+    losses) on the host, once a step; torch's clip is never asked to read
+    the norm itself, so without the flag the step is the one the loop
+    always took."""
+    from gantts_tpu_torch.train import loop
+
+    seen, reads = [], []
     real = torch.nn.utils.clip_grad_norm_
+    real_read = loop._require_finite_losses
 
     def spy(*args, **kwargs):
         seen.append(kwargs.get("error_if_nonfinite", False))
         return real(*args, **kwargs)
+
+    def read(out, where, norms=()):
+        reads.append([name for name, _ in norms])
+        return real_read(out, where, norms)
     flags = ["--debug-nans"] * debug_nans
-    with mock.patch.object(torch.nn.utils, "clip_grad_norm_", spy):
+    with mock.patch.object(torch.nn.utils, "clip_grad_norm_", spy), \
+            mock.patch.object(loop, "_require_finite_losses", read):
         assert _run_train(_argv(corpus, str(tmp_path), 1, *flags)) == 0
-    assert seen and set(seen) == {debug_nans}
+    assert seen and set(seen) == {False}
+    assert bool(reads) == debug_nans
+    assert not debug_nans or ["discriminator", "generator"] in reads

@@ -38,6 +38,7 @@ def test_port_imports_without_jax():
     assert "gantts_tpu_torch.kernels.linear_scan" in MODULES
     assert "gantts_tpu_torch.curriculum" in MODULES
     assert "gantts_tpu_torch.train.flax_msgpack" in MODULES
+    assert "gantts_tpu_torch.train.graphs" in MODULES
     assert {"gantts_tpu_torch.core.fast_mlpg", "gantts_tpu_torch.synthesis",
             "gantts_tpu_torch.evaluation_vc",
             "gantts_tpu_torch.frontend.native",
@@ -116,6 +117,7 @@ def test_port_sources_name_no_jax():
     sources = [join(root, f) for root, _, files in os.walk(PORT)
                for f in files if f.endswith((".py", ".cu"))]
     sources.append(join(REPO, "chip_smoke.py"))
+    assert join(PORT, "train", "graphs.py") in sources
     found = []
     for src in sources:
         with open(src) as fh:
