@@ -25,7 +25,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      kernels with two directions and with one, forward and reversed; (3c)
      the linear recurrence of the k=3 SRU layer in float32, with ragged
      lengths; the bf16 GEMM also at the LSTM path's N = 8H; the SRU
-     kernels also at (4d)'s shapes, B=32, T=96, D in {416, 1024}; the
+     kernels also at (4d)'s shapes, B=32, T=96, D in {416, 1024}, and in
+     float32 at 12b's per-rank batches (B=10, one with a zero-length row); the
      one-direction LSTM kernels and the GEMM also at the VC path's shapes,
      D in {177, 512}, in float32 (the flag design) and bfloat16, and the
      f32 LSTM kernels at phase 9's B=1 and phase 8's batches padded with
@@ -138,7 +139,32 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      voiced, or a predicted log-F0 whose exp overflows float32; (11b) evaluation_tts and evaluation_vc on both
      formats, over the 7 shortest utterances (1 eval, 5 test), must write
      the same files; (11c) a legacy pickle checkpoint is refused by -g
-     and, given to --checkpoint-r, warned about while the stage trains on.
+     and, given to --checkpoint-r, warned about while the stage trains on;
+ 12. data parallelism (gantts_tpu_torch/parallel/) at 4g's full width, in
+     rank processes of this script (``chip_smoke.py --dp-rank MODE OUT``,
+     joined by ``initialize_distributed`` from torchrun's variables):
+     (12a) a one-rank NCCL group on cuda:0, DataParallelGanTrainer against
+     GanTrainer from the same states, 3 steps with dropout on: the same
+     bits in every scalar, parameter, optimizer value and the dropout
+     generator's state, 12 + 12 + 12 SRU launches a step with every plain
+     version refused, both walls in alternating rounds, the gradient
+     all-reduces' device time, and the time-sharded MLPG at world size 1
+     against the stencil; (12b) two gloo ranks on cuda:0 (the collectives
+     staged through the host), dropout off, against one process on the
+     whole batch (B=20 split 10 / 10, then 19 rows padded with a
+     zero-length row): the scalars within rtol 2e-4 / atol 1e-5, the
+     summed gradients within 1e-5 of their model's largest entry, the
+     parameters after step 1 within the limit Adagrad's slope gives, the
+     two ranks' states the same bits after 3 steps, the same step on the
+     rows in another order as the summation-order noise, which every limit
+     must hold, and a control that divides by each rank's own valid frames
+     (DistributedDataParallel's average of per-rank means), which the
+     gradient and parameter limits must catch; then, once 12c has ended,
+     the warm two-rank step's wall and its gradient all-reduces' time;
+     (12c, beside 12b's comparison) the command line with --distributed
+     (one NCCL rank through the coordinator flags) against without it,
+     two epochs of 6b's configuration: the same logged bits, checkpoints
+     and launches.
 
 Each of (4) to (4h) ends with a torch.profiler trace of a few more
 of its steps, which prints where the device time goes and the idle share
@@ -463,10 +489,11 @@ def check(kernel, what, dt, D, got, ref, lim, errs):
         errs[kernel] = max(errs[kernel], ab)
 
 
-def check_sru_kernels(dev, gen, lengths, Tn, dims, errs, where=""):
+def check_sru_kernels(dev, gen, lengths, Tn, dims, errs, where="",
+                      dtypes=(torch.float32, torch.bfloat16)):
     """The SRU kernels against their plain versions at Tn steps, the batch
-    of ``lengths`` and H, for each input width D in ``dims``, in float32 and
-    bfloat16: sru_proj_gemm's u, both scans in both directions (relu), the
+    of ``lengths`` and H, for each input width D in ``dims``, in each of
+    ``dtypes``: sru_proj_gemm's u, both scans in both directions (relu), the
     dx and dW their du gives, and the autograd layer (fused_sru_proj_layer)
     against the plain chain fed with the kernel GEMM's own u.  ``where``
     tags the printed checks with the path whose shapes they are."""
@@ -478,7 +505,7 @@ def check_sru_kernels(dev, gen, lengths, Tn, dims, errs, where=""):
     def uniform(*shape):
         return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound
 
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in dtypes:
         tol = TOL[dt]
         for D in dims:
             x = torch.randn((Tn, Bn, D), generator=gen, device=dev).to(dt)
@@ -525,7 +552,17 @@ def check_sru_kernels(dev, gen, lengths, Tn, dims, errs, where=""):
                 u_k = checks[0][2]
                 h_q, c_q = K.sru_fwd_scan_plain(u_k, bias4, lengths, reverse,
                                                 1)
-                du_q, db_q = K.sru_bwd_scan_plain(u_k, bias4, lengths, c_q,
+                # the plain backward reads the kernel forward's c, as the
+                # layer's does: relu's derivative jumps at c = 0, and the
+                # two forwards' f32 rounding may put a c on either side
+                c_k = K.sru_fwd_scan(u_k, bias4, lengths, reverse, 1)[1]
+                kinks = int((((c_k > 0) != (c_q > 0)) & (torch.arange(
+                    Tn, device=dev)[:, None, None] < lengths[:, None])).sum())
+                if kinks:
+                    print(f"[3] layer{where} {str(dt)[6:]} D={D}: c's sign "
+                          f"differs between the kernel's forward and the "
+                          f"plain one on {kinks} valid entries")
+                du_q, db_q = K.sru_bwd_scan_plain(u_k, bias4, lengths, c_k,
                                                   gh, reverse, 1)
                 du_q = du_q.reshape(Tn * Bn, -1)
                 checks += [
@@ -560,6 +597,13 @@ def phase_kernels(dev, card, errs):
     lh, Tp = duration_lengths(np.random.RandomState(0))
     check_sru_kernels(dev, gen, torch.as_tensor(lh, device=dev), Tp,
                       (PHONE_DIM, 2 * H), errs, ":4d")
+    # at 12b's per-rank shapes, float32: 4g's batch split 10 / 10, and its
+    # first 19 rows padded with a zero-length row (rank 1's 10 then)
+    lh = acoustic_batch(acoustic_hp("float32"), dev)[2]
+    for where, rank_lh in ((":12b-r0", lh[:B // 2]), (":12b-r1", lh[B // 2:]),
+                           (":12b-pad", np.r_[lh[B // 2:B - 1], 0])):
+        check_sru_kernels(dev, gen, torch.as_tensor(rank_lh, device=dev), T,
+                          (LIN_DIM, 2 * H), errs, where, (torch.float32,))
     # the GEMM at the LSTM path's width: both directions' W_ih, N = 8H
     bf = torch.bfloat16
     for D in (LIN_DIM, 2 * H):
@@ -1110,6 +1154,8 @@ def phase_synthesis_kernels(dev, card, errs):
 F32_GEMM_SHAPES = (
     ("tts_acoustic (4g, 10)", T * B, LIN_DIM, 4 * H),
     ("tts_acoustic (4g, 10)", T * B, 2 * H, 4 * H),
+    ("4g per rank (12b)", T * B // 2, LIN_DIM, 4 * H),
+    ("4g per rank (12b)", T * B // 2, 2 * H, 4 * H),
     ("tts_duration (10)", 3072, PHONE_DIM, 4 * H),
     ("tts_duration (10)", 3072, 2 * H, 4 * H),
     ("vc In2OutRNN (8)", T * B, VC_DIM, 4 * H),
@@ -1298,12 +1344,13 @@ def vc_batch(hp, dev):
     return x, y, bench_lengths(rs), R
 
 
-def make_trainer(hp, dev):
+def make_trainer(hp, dev, cls=None, **kwargs):
     """A GAN trainer with unit statistics, but for the acoustic bundles'
     V/UV static, which denormalizes around 2: targets and predictions near
     0 are voiced, so the F0 error, taken over frames voiced in both, is a
     number (as tests/test_torch_step.py's batch makes it).  The statistics
-    enter only the metrics."""
+    enter only the metrics.  ``cls`` (default GanTrainer) and ``kwargs``:
+    phase 12's data-parallel trainers."""
     from gantts_tpu_torch.train import GanTrainer, StepConfig
 
     cfg = StepConfig.from_hparams(hp, w_d=1.0, mse_w=0.0, mge_w=1.0,
@@ -1312,7 +1359,8 @@ def make_trainer(hp, dev):
     y_mean = np.zeros(out_dim, np.float32)
     if cfg.name == "acoustic":
         y_mean[sum(hp.stream_sizes[:2])] = 2.0
-    return GanTrainer(cfg, y_mean, np.ones(out_dim, np.float32), dev)
+    return (cls or GanTrainer)(cfg, y_mean, np.ones(out_dim, np.float32),
+                               dev, **kwargs)
 
 
 def small_step_batch(hp, Ts, Bs):
@@ -3577,6 +3625,657 @@ def phase_jax_files(dev, card, vc_tmp, tts_tmp):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: data parallelism (gantts_tpu_torch/parallel/) on the one card
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3        # 12a / 12b: steps compared
+DP_TIMED = 5        # 12a: timed steps a round, after the compared ones
+DP_ROUNDS = 3       # 12a: timed rounds each way, alternating
+DP_REDUCES = 10     # 12a: timed gradient all-reduces of each model
+DP_SCALAR_RTOL, DP_SCALAR_ATOL = 2e-4, 1e-5  # tests/test_parallel.py:69-72
+DP_GRAD_TOL = 1e-5  # of the largest |entry| of G's or D's gradient
+DP_FIRST_STEP_TOL = 1e-6  # 12b: parameters after step 1, besides what the
+#                           gradient limit allows (dp_param_gaps)
+DP_MLPG_TOL = 5e-5  # time-sharded MLPG against the stencil (CPU tests')
+DP_TIMEOUT = 600    # seconds a rank process may take
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def start_dp_ranks(mode, world, tmp):
+    """Start ``world`` processes of ``chip_smoke.py --dp-rank MODE OUT``,
+    ranks of a group that meets at tcp://localhost (torchrun's variables:
+    ``initialize_distributed`` reads them), all on cuda:0."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    jobs = []
+    for rank in range(world):
+        out = os.path.join(tmp, f"{mode}_rank{rank}")
+        env = dict(os.environ, MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                   RANK=str(rank), LOCAL_RANK="0")
+        with open(out + ".out", "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.join(here, "chip_smoke.py"),
+                 "--dp-rank", mode, out + ".json"], cwd=here, env=env,
+                stdout=log, stderr=subprocess.STDOUT)
+        jobs.append((proc, out))
+    return jobs
+
+
+def stop_processes(procs):
+    """Kill those of ``procs`` still running (a phase that failed)."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_dp_ranks(tag, jobs):
+    """Wait for the rank processes; fail (their logs' ends printed) if one
+    fails.  Returns each rank's JSON result."""
+    results, failed = [], []
+    deadline = time.time() + DP_TIMEOUT
+    for proc, out in jobs:
+        try:
+            rc = proc.wait(timeout=max(deadline - time.time(), 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        if rc != 0:
+            failed.append(out)
+    for out in failed:
+        with open(out + ".out") as f:
+            print(f"[{tag}] {os.path.basename(out)}:\n" +
+                  "".join(f.readlines()[-40:]))
+    if failed:
+        stop_processes([proc for proc, _ in jobs])
+        fail(f"phase {tag}: {len(failed)} rank process(es) failed")
+    for _, out in jobs:
+        with open(out + ".json") as f:
+            results.append(json.load(f))
+    return results
+
+
+def same_bits(a, b):
+    """Two tensors hold the same bits (NaN where the other has NaN)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.detach().cpu().reshape(-1).view(torch.uint8),
+        b.detach().cpu().reshape(-1).view(torch.uint8))
+
+
+def dp_world_one(mesh):
+    """12a, in a rank process of a one-rank NCCL group: 4g's step through
+    DataParallelGanTrainer and through GanTrainer from the same states,
+    DP_STEPS steps each with dropout on; the same bits in every scalar,
+    parameter, optimizer value and the dropout generator's state, 12 + 12
+    + 12 SRU launches a step with every plain version refused; then the
+    walls of both, the gradient all-reduces' device time, and the
+    time-sharded MLPG against the stencil on the card."""
+    from gantts_tpu_torch.core.fast_mlpg import multi_stream_mlpg_stencil
+    from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from gantts_tpu_torch.parallel import (
+        DataParallelGanTrainer,
+        time_sharded_unit_variance_mlpg,
+    )
+    from gantts_tpu_torch.train.setup import init_models_and_states
+
+    dev = mesh.device
+    hp = acoustic_hp("float32")
+    x, y, lh, R = acoustic_batch(hp, dev)
+    lengths = torch.as_tensor(lh, device=dev)
+    per_step = dict({k: 0 for k in KERNELS}, sru_proj_gemm=12,
+                    sru_fwd_scan=12, sru_bwd_scan=12)
+    states = init_models_and_states(hp, seed=0, device=dev)[4:]
+    states = {"plain": copy.deepcopy(states), "dp": states}
+    runs = {}
+    for kind in ("dp", "plain"):
+        gstate, dstate = states[kind]
+        trainer = (make_trainer(hp, dev, DataParallelGanTrainer, mesh=mesh,
+                                states=(gstate, dstate)) if kind == "dp"
+                   else make_trainer(hp, dev))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        with plain_versions_forbidden():
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            outs = [trainer.step(gstate, dstate, x, y, lengths, R, 1.0,
+                                 gen)[2] for _ in range(DP_STEPS)]
+            torch.cuda.synchronize()
+            counts = dict(launch_counts)
+            runs[kind] = dict(outs=outs, counts=counts,
+                              gen=gen.get_state(),
+                              states=copy.deepcopy(state_payloads(
+                                  gstate, dstate)),
+                              steps=(trainer, gstate, dstate, gen), ms=[])
+        want = {k: n * DP_STEPS for k, n in per_step.items()}
+        if counts != want:
+            fail(f"[12a] {kind}: launches {counts}, expected {want}")
+    with plain_versions_forbidden():
+        for _ in range(DP_ROUNDS):
+            for kind in ("dp", "plain"):
+                trainer, gstate, dstate, gen = runs[kind]["steps"]
+                t0 = time.perf_counter()
+                for _ in range(DP_TIMED):
+                    trainer.step(gstate, dstate, x, y, lengths, R, 1.0, gen)
+                torch.cuda.synchronize()
+                runs[kind]["ms"].append(
+                    (time.perf_counter() - t0) / DP_TIMED * 1e3)
+        trainer, gstate, dstate, _ = runs["dp"]["steps"]
+        reduce_ms = {}
+        for name, st in (("G", gstate), ("D", dstate)):
+            reduce_ms[name] = time_ms(
+                lambda m=st.model: trainer._reduce_grads(m), DP_REDUCES,
+                warmup=1)
+            reduce_ms[name + "_bytes"] = sum(
+                p.grad.numel() * 4 for p in st.model.parameters())
+    dp, plain = runs["dp"], runs["plain"]
+    for j, (a, b) in enumerate(zip(dp["outs"], plain["outs"])):
+        for k in b:
+            if not same_bits(a[k], b[k]):
+                fail(f"[12a] step {j}: {k} {float(a[k])!r} data-parallel, "
+                     f"{float(b[k])!r} plain")
+    counted = [require_same_states(f"[12a] {name}", a, b)
+               for name, a, b in zip(("generator", "discriminator"),
+                                     dp["states"], plain["states"])]
+    if not torch.equal(dp["gen"], plain["gen"]):
+        fail("[12a] the dropout generator's state differs")
+
+    rs = np.random.RandomState(2)
+    u = torch.as_tensor(rs.randn(B, T, 180).astype(np.float32), device=dev)
+    got = time_sharded_unit_variance_mlpg(u, hp.windows)
+    ref = multi_stream_mlpg_stencil(u, hp.windows, [180], [True])
+    mlpg_err = float((got - ref).abs().max())
+    if not mlpg_err <= DP_MLPG_TOL:
+        fail(f"[12a] time-sharded MLPG off the stencil by {mlpg_err}")
+    return dict(backend=torch.distributed.get_backend(), world=mesh.world,
+                device=str(dev),
+                scalars=len(plain["outs"][0]) * DP_STEPS,
+                params=sum(n for n, _ in counted),
+                opt_values=sum(n for _, n in counted), launches=dp["counts"],
+                ms_dp=dp["ms"], ms_plain=plain["ms"], reduce=reduce_ms,
+                mlpg_err=mlpg_err, valid_frames=int(lh.sum()))
+
+
+class _Recording:
+    """12b: an optimizer that keeps the gradients it is given (after the
+    trainer's sums over the group) before it steps."""
+
+    def __init__(self, optimizer, module):
+        self.optimizer, self.module, self.grads = optimizer, module, None
+
+    def __getattr__(self, name):
+        return getattr(self.optimizer, name)
+
+    def zero_grad(self):
+        self.optimizer.zero_grad()
+
+    def step(self):
+        self.grads = [p.grad.detach().clone()
+                      for p in self.module.parameters()]
+        self.optimizer.step()
+
+
+def dp_local_tm_trainer():
+    """12b's control, a flag of this phase: a data-parallel trainer that
+    divides each rank's sums by its own valid frames times the world size,
+    DistributedDataParallel's average of per-rank means.  Tm is the step's
+    one 0-dim sum (the rest are stacked)."""
+    from gantts_tpu_torch.parallel import DataParallelGanTrainer
+
+    class LocalTm(DataParallelGanTrainer):
+        def _global_sum(self, t):
+            if t.dim() == 0:
+                return t * self.mesh.world
+            return super()._global_sum(t)
+    return LocalTm
+
+
+def dp_grad_scales(grads, names):
+    """The largest |entry| of each model's gradient (G or D), per tensor:
+    12b's gradient limit is DP_GRAD_TOL of it ("within 1e-5 of max|g|" of
+    G and of D).  Of a single tensor it would be too fine: D's output bias
+    gradient sums real and fake frames' terms that cancel to max|g| 3.5e-5,
+    and one process differs from itself by 2.9-3.5 times 1e-5 of that when
+    its rows come in another order (PERF.md, Findings)."""
+    top = {}
+    for g, name in zip(grads, names):
+        model = name.split(".")[0]
+        top[model] = max(top.get(model, 0.0), float(g.abs().max()))
+    return [top[name.split(".")[0]] for name in names]
+
+
+def dp_compare(out, grads, ref_out, ref_grads, names):
+    """12b's comparison: the worst scalar against rtol DP_SCALAR_RTOL /
+    atol DP_SCALAR_ATOL and the worst gradient against DP_GRAD_TOL of its
+    model's largest entry (dp_grad_scales), each as a share of its limit,
+    with the three worst gradients named beside their share of DP_GRAD_TOL
+    of their own largest entry.  Passes where both shares are <= 1."""
+    worst_scalar = max(
+        0.0 if (math.isnan(a) and math.isnan(b)) else
+        abs(a - b) / (DP_SCALAR_ATOL + DP_SCALAR_RTOL * abs(b))
+        for a, b in ((float(out[k]), float(ref_out[k])) for k in ref_out))
+    shares = sorted(
+        (float((g - r).abs().max()) / (DP_GRAD_TOL * scale), name,
+         float((g - r).abs().max()) / (DP_GRAD_TOL * max(
+             float(r.abs().max()), 1e-30)), float(r.abs().max()))
+        for g, r, name, scale in zip(grads, ref_grads, names,
+                                     dp_grad_scales(ref_grads, names)))
+    worst = [f"{name} {share:.3g} ({own:.3g} of 1e-5 of its own max|g| "
+             f"{top:.3g})" for share, name, own, top in shares[::-1][:3]]
+    return worst_scalar, shares[-1][0], worst
+
+
+def dp_param_gaps(params, ref_params, ref_grads, ref_accum, ref_coef, lr,
+                  names):
+    """Parameters after the first step against the single-process run's.
+
+    Adagrad's first step moves a parameter by lr g' / (|g'| + eps), with
+    g' = c g + wd p (c the global-norm clip's factor, wd the weight decay;
+    the accumulator then holds g'^2): about +-lr wherever |g'| >> eps,
+    whatever |g'|, so a gradient that the two summation orders put on
+    either side of 0 moves it by up to 2 lr.  The gradient check bounds
+    the gradients' difference by tau = DP_GRAD_TOL max|g| (of the model,
+    dp_grad_scales), so |g'| differs
+    by at most c tau; where |g'| > 2 c tau no sign can flip, and the update
+    moves by at most its slope lr eps / (|g'| - c tau + eps)^2 times c tau.
+    Each such entry must lie within DP_FIRST_STEP_TOL plus that.  Returns
+    (the worst gap there as a share of its limit, the largest gap anywhere,
+    the entries where a sign may flip)."""
+    eps = 1e-10  # torch.optim.Adagrad's, as train/optim.py builds it
+    worst, anywhere, free = 0.0, 0.0, 0
+    for p, r, acc, c, scale in zip(params, ref_params, ref_accum, ref_coef,
+                                   dp_grad_scales(ref_grads, names)):
+        gap = (p - r).abs()
+        anywhere = max(anywhere, float(gap.max()))
+        ctau = c * DP_GRAD_TOL * scale
+        room = acc.sqrt() - ctau
+        sure = room > ctau
+        limit = DP_FIRST_STEP_TOL + lr * eps * ctau / (room + eps) ** 2
+        if sure.any():
+            worst = max(worst, float((gap / limit)[sure].max()))
+        free += int((~sure).sum())
+    return worst, anywhere, free
+
+
+def dp_two_ranks(mesh, gate):
+    """12b, in each of two gloo rank processes on cuda:0 (the collectives
+    go through the host): 4g's step without dropout on 12a's batch split
+    10 / 10 against the single-process step on the whole batch (rank 0
+    runs it), then on its first 19 rows (padded to 20 with a zero-length
+    row), then the local-Tm control, which the comparison must catch.
+    Then, once the file ``gate`` exists (12c's processes have ended), the
+    warm step's wall and the gradient all-reduces' time."""
+    import torch.distributed as dist
+
+    from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from gantts_tpu_torch.parallel import DataParallelGanTrainer, \
+        _state_tensors
+    from gantts_tpu_torch.train.setup import init_models_and_states
+
+    dev = mesh.device
+    hp = acoustic_hp("float32", dropout=0.0, rnn_dropout=0.0)
+    hp.discriminator_params.update(dropout=0.0)
+    x, y, lh, R = acoustic_batch(hp, dev)
+    xh, yh = x.cpu().numpy(), y.cpu().numpy()
+    lr = hp.optimizer_g_params["lr"]
+
+    def states():
+        g, d = init_models_and_states(hp, seed=0, device=dev)[4:]
+        for s in (g, d):
+            s.optimizer = _Recording(s.optimizer, s.model)
+        return g, d
+
+    def run(trainer, g, d, rows, steps):
+        batch = [torch.as_tensor(a, device=dev) for a in rows]
+        snaps = []
+        for _ in range(steps):
+            g, d, out = trainer.step(g, d, *batch, R, 1.0)
+            if not snaps:
+                snaps.append(dict(
+                    out=out, grads=g.optimizer.grads + d.optimizer.grads,
+                    names=[f"{tag}.{n}" for tag, s in (("G", g), ("D", d))
+                           for n, _ in s.model.named_parameters()],
+                    params=[p.detach().clone() for s in (g, d)
+                            for p in s.model.parameters()],
+                    accum=[s.optimizer.inner.state[p]["sum"].clone()
+                           for s in (g, d) for p in s.model.parameters()],
+                    coef=[min(1.0, 1.0 / (float(s.optimizer.grad_norm)
+                                          + 1e-6))
+                          for s in (g, d) for _ in s.model.parameters()]))
+        torch.cuda.synchronize()
+        return snaps[0], g, d
+
+    res = {"rank": mesh.rank, "world": mesh.world,
+           "backend": dist.get_backend(), "cases": {}}
+    with plain_versions_forbidden():
+        for case, n_rows, cls in (("B=20", B, DataParallelGanTrainer),
+                                  ("B=19", B - 1, DataParallelGanTrainer),
+                                  ("control", B, dp_local_tm_trainer())):
+            steps = DP_STEPS if case == "B=20" else 1
+            rows = (xh[:n_rows], yh[:n_rows], lh[:n_rows])
+            ref = order = None
+            if mesh.rank == 0:  # the single-process step on the batch,
+                # and on its rows in another order (rank 1's block first):
+                # the gradients' summation-order noise of one process
+                g, d = states()
+                ref = run(make_trainer(hp, dev), g, d, rows, steps)
+                b = -(-n_rows // mesh.world)
+                perm = list(range(b, n_rows)) + list(range(b))
+                g, d = states()
+                order = run(make_trainer(hp, dev), g, d,
+                            [a[perm] for a in rows], 1)
+            g, d = states()
+            trainer = make_trainer(hp, dev, cls, mesh=mesh, states=(g, d))
+            local = trainer.put_batch(*rows)[:3]
+            reset_launch_counts()
+            got = run(trainer, g, d, local, steps)
+            rec = dict(launches=dict(launch_counts),
+                       rows=int(len(local[2])),
+                       valid_frames=int(local[2].sum()))
+            if case == "B=20":  # the ranks' states, bit for bit
+                differ = 0
+                for s in got[1:]:
+                    for t in _state_tensors(s, dev):
+                        mine, theirs = t.detach().clone(), t.detach().clone()
+                        dist.broadcast(theirs, 0)
+                        differ += int(not same_bits(mine, theirs))
+                rec["differ"] = differ
+                rec["tensors"] = len(_state_tensors(got[1], dev)) + len(
+                    _state_tensors(got[2], dev))
+                warm = (trainer, got[1], got[2], local)
+            if ref is not None:
+                first, ref_first = got[0], ref[0]
+                (rec["worst_scalar"], rec["worst_grad"],
+                 rec["worst_names"]) = dp_compare(
+                    first["out"], first["grads"], ref_first["out"],
+                    ref_first["grads"], ref_first["names"])
+                (rec["order_scalar"], rec["order_grad"],
+                 rec["order_names"]) = dp_compare(
+                    order[0]["out"], order[0]["grads"], ref_first["out"],
+                    ref_first["grads"], ref_first["names"])
+                for tag, run_first in (("first", first),
+                                       ("order_first", order[0])):
+                    (rec[tag + "_worst"], rec[tag + "_gap_any"],
+                     rec[tag + "_free"]) = dp_param_gaps(
+                        run_first["params"], ref_first["params"],
+                        ref_first["grads"], ref_first["accum"],
+                        ref_first["coef"], lr, ref_first["names"])
+            res["cases"][case] = rec
+
+        # the warm two-rank step alone on the card: after the compared
+        # steps, without their copies, once 12c's processes have ended
+        deadline = time.time() + DP_TIMEOUT
+        while not os.path.exists(gate):
+            if time.time() > deadline:
+                fail("[12b] 12c did not end")
+            time.sleep(0.1)
+        trainer, g, d, local = warm
+        for s in (g, d):
+            s.optimizer = s.optimizer.optimizer  # _Recording's optimizer
+        batch = [torch.as_tensor(a, device=dev) for a in local]
+        res["ms"] = []
+        for _ in range(DP_ROUNDS):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(DP_TIMED):
+                trainer.step(g, d, *batch, R, 1.0)
+            torch.cuda.synchronize()
+            res["ms"].append((time.perf_counter() - t0) / DP_TIMED * 1e3)
+        res["reduce"] = {}
+        for name, st in (("G", g), ("D", d)):
+            res["reduce"][name] = time_ms(
+                lambda m=st.model: trainer._reduce_grads(m), DP_REDUCES,
+                warmup=1)
+            res["reduce"][name + "_bytes"] = sum(
+                p.grad.numel() * 4 for p in st.model.parameters())
+    return res
+
+
+def run_dp_rank(argv):
+    """``chip_smoke.py --dp-rank MODE OUT``: one rank of phase 12a (NCCL)
+    or 12b (gloo on cuda:0), joined from torchrun's variables by
+    ``initialize_distributed``; its result to OUT as JSON."""
+    import torch.distributed as dist
+
+    from gantts_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    mode, out = argv
+    if mode == "12a":
+        mesh = initialize_distributed()
+        res = dp_world_one(mesh)
+    else:
+        initialize_distributed(backend="gloo")
+        mesh = make_mesh(device=torch.device("cuda", 0))
+        res = dp_two_ranks(mesh, os.path.join(os.path.dirname(out),
+                                              "12b.go"))
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def start_dp_cli(tmp):
+    """12c: start the training command line with ``--distributed`` (a
+    one-rank NCCL group through the coordinator flags) and without, at
+    ``--steps-per-dispatch 1``, two epochs of phase 6b's configuration on
+    its corpus of one bucket, each in a process of its own under the
+    launch counters."""
+    from gantts_tpu_torch import hparams
+
+    gp = dict(hparams.tts_acoustic.generator_params, bidirectional=False)
+    write_acoustic_corpus(tmp, num=44, frames=(481, 513))
+    xdir, ydir = (os.path.join(tmp, d) for d in ("X_acoustic", "Y_acoustic"))
+    jobs = {}
+    for tag, extra in (("plain", ["--steps-per-dispatch=1"]),
+                       ("distributed", [
+                           "--distributed",
+                           f"--coordinator-address=localhost:{free_port()}",
+                           "--num-processes=1", "--process-id=0"])):
+        ck = os.path.join(tmp, f"ck_{tag}")
+        argv = [xdir, ydir, "--hparams_name=tts_acoustic",
+                f"--hparams=nepoch=2,batch_size=2,compute_dtype=bfloat16,"
+                f"generator_params={gp!r}", "--w_d=1",
+                f"--checkpoint-dir={ck}", f"--log-event-path={ck}/log",
+                "--disable-slack", *extra]
+        log = os.path.join(tmp, tag)
+        jobs[tag] = (ck, log, start_cli_process(argv, log))
+    return jobs
+
+
+def finish_dp_cli(jobs):
+    """12c's runs: (rows, checkpoints, launches, seconds) of each."""
+    from gantts_tpu_torch.train.checkpoint import load_checkpoint
+
+    runs = {}
+    for tag, (ck, log, job) in jobs.items():
+        launches, secs, _, _ = finish_cli_process(f"12c {tag}", job, log)
+        with open(log + ".out") as f:
+            text = f.read()
+        files = sorted(n for n in os.listdir(ck) if n.endswith(".pth"))
+        with quiet():
+            payloads = {n: load_checkpoint(os.path.join(ck, n))
+                        for n in files}
+        runs[tag] = dict(rows=scalar_rows(ck), files=payloads,
+                         launches=launches, secs=secs,
+                         dp="Data-parallel over 1 devices" in text)
+    return runs
+
+
+def phase_data_parallel(card):
+    """Phase 12: the data-parallel trainer at 4g's full width on the one
+    card.  (12a) a one-rank NCCL group against the plain trainer, bit for
+    bit; (12b) two gloo ranks on the card against the single-process step,
+    within its limits, with the local-Tm control caught; (12c) the command
+    line with ``--distributed`` against without, bit for bit.  Returns the
+    launch counts of the data-parallel runs."""
+    totals = {k: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.ExitStack() as cleanup:
+        t0 = time.perf_counter()
+        (a,) = finish_dp_ranks("12a", start_dp_ranks("12a", 1, tmp))
+        print(f"[12a] {a['backend']} group of {a['world']} rank on "
+              f"{a['device']}: "
+              f"DataParallelGanTrainer and GanTrainer, {DP_STEPS} steps of "
+              f"4g (B={B}, T={T}, {a['valid_frames']} valid frames, float32,"
+              f" dropout on) from the same states: identical bits in "
+              f"{a['scalars']} scalars, {a['params']} parameters, "
+              f"{a['opt_values']} optimizer values and the dropout "
+              f"generator's state; launches {a['launches']}")
+        r = a["reduce"]
+        print(f"[12a] ms/step (host clock, {DP_ROUNDS} alternating rounds "
+              f"of {DP_TIMED} steps, median [rounds]): data-parallel "
+              f"{np.median(a['ms_dp']):.3f} "
+              f"{[round(v, 3) for v in a['ms_dp']]}, plain "
+              f"{np.median(a['ms_plain']):.3f} "
+              f"{[round(v, 3) for v in a['ms_plain']]}; the "
+              f"gradient sums (flatten, {a['backend']} all-reduce at world "
+              f"size {a['world']}, copy back; device time): G "
+              f"{r['G']:.4f} ms for {r['G_bytes']} bytes, D {r['D']:.4f} ms "
+              f"for {r['D_bytes']} bytes  [{card}]")
+        print(f"[12a] time-sharded MLPG at world size 1 on the card against "
+              f"the stencil (B={B}, T={T}, 180 = 3 x 60): max |diff| "
+              f"{a['mlpg_err']:.3g} (limit {DP_MLPG_TOL})")
+        for k, n in a["launches"].items():
+            totals[k] += n
+
+        # 12c's processes run beside 12b's comparison; 12b's timed steps
+        # wait for the gate file, written once 12c's processes have ended
+        cli_tmp = os.path.join(tmp, "cli")
+        os.makedirs(cli_tmp)
+        cli_jobs = start_dp_cli(cli_tmp)
+        cleanup.callback(stop_processes,
+                         [job for _, _, (job, _) in cli_jobs.values()])
+        rank_jobs = start_dp_ranks("12b", 2, tmp)
+        cleanup.callback(stop_processes, [proc for proc, _ in rank_jobs])
+        runs = finish_dp_cli(cli_jobs)
+        open(os.path.join(tmp, "12b.go"), "w").close()
+        ranks = finish_dp_ranks("12b", rank_jobs)
+        print(f"[12b] {ranks[0]['backend']} group of {ranks[0]['world']} "
+              f"ranks, both on cuda:0: CUDA tensors, each collective "
+              f"staged through the host")
+        params = {}  # case -> the first-step parameter gaps' worst share
+        for case in ("B=20", "B=19", "control"):
+            recs = [rk["cases"][case] for rk in ranks]
+            ref = recs[0]
+            for rank, rec in enumerate(recs):
+                print(f"[12b] {case} rank {rank}: {rec['rows']} rows, "
+                      f"{rec['valid_frames']} valid frames, launches "
+                      f"{ {k: n for k, n in rec['launches'].items() if n} }")
+                if case != "control":
+                    if not rec["launches"]["sru_fwd_scan"]:
+                        fail(f"[12b] {case}: rank {rank}'s SRU kernels did "
+                             f"not launch")
+                    for k, n in rec["launches"].items():
+                        totals[k] += n
+            ok = ref["worst_scalar"] <= 1 and ref["worst_grad"] <= 1
+            print(f"[12b] {case} against one process on the whole batch: "
+                  f"worst scalar {ref['worst_scalar']:.3g} of its limit "
+                  f"(rtol {DP_SCALAR_RTOL}, atol {DP_SCALAR_ATOL}), worst "
+                  f"gradient {ref['worst_grad']:.3g} of its limit "
+                  f"({DP_GRAD_TOL} of its model's max|g|): "
+                  f"{'within' if ok else 'outside'} the limits; after step "
+                  f"1 the parameters where no gradient sign can flip at "
+                  f"{ref['first_worst']:.3g} of their limit "
+                  f"({DP_FIRST_STEP_TOL} + Adagrad's slope x the gradient "
+                  f"limit), {ref['first_gap_any']:.3g} at most anywhere "
+                  f"({ref['first_free']} entries where a sign may flip)")
+            print(f"[12b] {case}: the worst gradients {ref['worst_names']}"
+                  f"; one process on the rows in another order, against "
+                  f"the same: worst scalar {ref['order_scalar']:.3g}, worst "
+                  f"gradient {ref['order_grad']:.3g} of the limits "
+                  f"({ref['order_names']}); its parameters after step 1 "
+                  f"at {ref['order_first_worst']:.3g} of their limit, "
+                  f"{ref['order_first_gap_any']:.3g} at most anywhere "
+                  f"({ref['order_first_free']} entries where a sign may "
+                  f"flip)")
+            params[case] = ref["first_worst"]
+            if max(ref["order_scalar"], ref["order_grad"],
+                   ref["order_first_worst"]) > 1:
+                fail(f"[12b] {case}: one process against itself on "
+                     f"reordered rows is outside the limits")
+            if case == "control":
+                if ok or ref["first_worst"] <= 1:
+                    fail("[12b] the local-Tm control passed the gradient "
+                         "or the parameter limit")
+                continue
+            if not ok:
+                fail(f"[12b] {case}: outside the limits")
+            if ref["first_worst"] > 1:
+                fail(f"[12b] {case}: the parameters are outside their "
+                     f"limits")
+            if case == "B=20":
+                differ = sum(rec["differ"] for rec in recs)
+                print(f"[12b] after {DP_STEPS} steps the two ranks hold the "
+                      f"same bits in {ref['tensors']} state tensors "
+                      f"(parameters, optimizer state, step and lr): "
+                      f"{differ == 0}")
+                if differ:
+                    fail(f"[12b] {differ} state tensors differ between the "
+                         f"ranks")
+        order = max(ranks[0]["cases"][c]["order_first_worst"]
+                    for c in params)
+        print(f"[12b] the first-step parameter limit, worst share: the "
+              f"summation-order noise of one process {order:.3g}, "
+              f"the data-parallel step {params['B=20']:.3g} (B=20) and "
+              f"{params['B=19']:.3g} (B=19), the local-Tm control "
+              f"{params['control']:.3g}")
+        r = ranks[0]["reduce"]
+        print(f"[12b] the warm two-rank step alone on the card (after the "
+              f"compared steps, once 12c has ended; host clock, "
+              f"{DP_ROUNDS} rounds of {DP_TIMED} steps, median [rounds]): "
+              + ", ".join(f"rank {rk['rank']} {np.median(rk['ms']):.3f} "
+                          f"{[round(v, 3) for v in rk['ms']]}"
+                          for rk in ranks)
+              + f" ms/step; rank 0's gradient sums (flatten, gloo all-reduce "
+              f"through the host at world size 2, copy back; CUDA events): "
+              f"G {r['G']:.4f} ms for {r['G_bytes']} bytes, D {r['D']:.4f} "
+              f"ms for {r['D_bytes']} bytes  [{card}]")
+
+        plain, dist_run = runs["plain"], runs["distributed"]
+        if not dist_run["dp"] or plain["dp"]:
+            fail("[12c] --distributed did not take the data-parallel "
+                 "trainer, or the plain run did")
+        timing = ("frames_per_sec", "epoch_seconds")
+        a_rows, b_rows = ([(r["tag"], r["step"], r["value"]) for r in rows
+                           if not r["tag"].endswith(timing)]
+                          for rows in (plain["rows"], dist_run["rows"]))
+        if a_rows != b_rows or not a_rows:
+            diff = [(p, q) for p, q in zip(a_rows, b_rows) if p != q][:3]
+            fail(f"[12c] the logged series differ: {diff}")
+        if list(plain["files"]) != list(dist_run["files"]):
+            fail(f"[12c] checkpoints differ: {list(plain['files'])} and "
+                 f"{list(dist_run['files'])}")
+        for name, (sd, opt, epoch) in plain["files"].items():
+            sd2, opt2, epoch2 = dist_run["files"][name]
+            require_same_states(f"[12c] {name}",
+                                {"state_dict": sd, "optimizer": opt},
+                                {"state_dict": sd2, "optimizer": opt2})
+            if epoch != epoch2:
+                fail(f"[12c] {name}: epoch {epoch} and {epoch2}")
+        if plain["launches"] != dist_run["launches"]:
+            fail(f"[12c] launches differ: {plain['launches']} and "
+                 f"{dist_run['launches']}")
+        for k, n in dist_run["launches"].items():
+            totals[k] += n
+        print(f"[12c] the command line with --distributed (one NCCL rank) "
+              f"and without, --steps-per-dispatch 1: {len(a_rows)} logged "
+              f"values and {len(plain['files'])} checkpoints, the same bits; "
+              f"launches {dist_run['launches']}; {dist_run['secs']:.1f} s "
+              f"and {plain['secs']:.1f} s (concurrent processes, beside "
+              f"12b's comparison)  [{card}]")
+        print(f"[12] phase 12 took {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def main_paths():
     """Phase 4's paths: (tag, hparams, launches a step of each kernel,
     expected parameter counts of the generator and the discriminator,
@@ -3721,8 +4420,10 @@ def main():
             launches[k] += n
         for k, n in phase_jax_files(dev, card, vc_tmp, tts_tmp).items():
             launches[k] += n
+    for k, n in phase_data_parallel(card).items():
+        launches[k] += n
 
-    # launches: the main paths' runs, 4-4h, 6, 7, 8, 9, 10 and 11
+    # launches: the main paths' runs, 4-4h, 6, 7, 8, 9, 10, 11 and 12
     # (sru_proj_gemm and the scans serve several)
     print(f"[end] all phases passed in {time.perf_counter() - started:.1f} s")
     kernels = [dict({"name": k, "route": "cuda", "source": src,
@@ -3739,4 +4440,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--counted"]:
         sys.exit(run_counted(sys.argv[2:]))
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(run_dp_rank(sys.argv[2:]))
     sys.exit(main())

@@ -12,9 +12,12 @@ def sequence_mask(lengths, max_len):
     return (seq_range[None, :] < lengths[:, None]).float()
 
 
-def masked_mse_loss(input, target, lengths=None, mask=None, max_len=None):
+def masked_mse_loss(input, target, lengths=None, mask=None, max_len=None,
+                    denom=None):
     """``sum((input - target)^2 * mask) / mask.sum()``: the denominator is the
-    number of valid frames (mask is (B, T, 1)), not frames x dims."""
+    number of valid frames (mask is (B, T, 1)), not frames x dims.  ``denom``
+    replaces ``mask.sum()`` (a data-parallel rank divides its own sum by
+    the global batch's valid frames)."""
     if lengths is None and mask is None:
         raise RuntimeError("Should provide either lengths or mask")
     if mask is None:
@@ -22,4 +25,6 @@ def masked_mse_loss(input, target, lengths=None, mask=None, max_len=None):
             max_len = input.shape[1]
         mask = sequence_mask(lengths, max_len)[..., None]
     diff = (input - target) * mask
-    return torch.sum(diff * diff) / torch.sum(mask)
+    if denom is None:
+        denom = torch.sum(mask)
+    return torch.sum(diff * diff) / denom

@@ -86,12 +86,57 @@ class TorchLinear(nn.Module):
             + self.bias
 
 
+class BatchRows:
+    """The dropout generator as one rank of a data-parallel group sees it.
+
+    Every draw is of the global batch's shape (the local batch axis times
+    ``world``) from the generator all ranks share, and the rank keeps its
+    own rows: rank r holds rows [r b, (r + 1) b) of each global block of
+    the batch axis, ``axis`` of the drawn shape.  ``parts`` > 1 says that
+    the local batch is that many such blocks stacked (the discriminator's
+    [real | fake] call), so the masks are those of the single-device step on
+    the global batch."""
+
+    def __init__(self, generator, rank, world, parts=1, axis=0):
+        self.generator, self.rank, self.world = generator, rank, world
+        self.parts, self.axis = parts, axis
+
+    def rand(self, shape, device):
+        shape, axis = list(shape), self.axis
+        b = shape[axis] // self.parts
+        shape[axis] *= self.world
+        r = torch.rand(shape, generator=self.generator, device=device)
+        r = r.unflatten(axis, (self.parts, self.world, b))
+        return r.select(axis + 1, self.rank).flatten(axis, axis + 1)
+
+
+def batch_view(generator, parts=None, axis=None):
+    """``generator`` for a batch of ``parts`` stacked blocks on ``axis`` of
+    the drawn shapes (None: as the generator says): a ``BatchRows`` so
+    told, any other generator as it is."""
+    if isinstance(generator, BatchRows):
+        return BatchRows(
+            generator.generator, generator.rank, generator.world,
+            generator.parts if parts is None else parts,
+            generator.axis if axis is None else axis)
+    return generator
+
+
+def rand(shape, generator, device):
+    """U[0, 1) of ``shape``: ``torch.rand`` from ``generator``, or a rank's
+    rows of the global draw when it is a ``BatchRows``."""
+    if isinstance(generator, BatchRows):
+        return generator.rand(shape, device)
+    return torch.rand(shape, generator=generator, device=device)
+
+
 def _dropout(x, rate, training, generator):
-    """Per-element dropout (flax ``nn.Dropout``: kept values scaled 1/keep)."""
+    """Per-element dropout (flax ``nn.Dropout``: kept values scaled 1/keep).
+    A ``BatchRows`` generator says where the batch axis lies."""
     if not training or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = rand(x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

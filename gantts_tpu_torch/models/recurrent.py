@@ -18,7 +18,12 @@ import torch
 import torch.nn as nn
 
 from gantts_tpu_torch.kernels.lstm_scan import lstm_proj_layer
-from gantts_tpu_torch.models.common import _dropout, default_lengths, uniform_
+from gantts_tpu_torch.models.common import (
+    _dropout,
+    batch_view,
+    default_lengths,
+    uniform_,
+)
 
 
 class LSTMLayer(nn.Module):
@@ -73,5 +78,6 @@ class StackedLSTM(nn.Module):
             out = lstm_proj_layer(out, params, lengths, self.reverse,
                                   self.compute_dtype)
             if self.dropout > 0 and i < self.num_layers - 1:
-                out = _dropout(out, self.dropout, self.training, generator)
+                out = _dropout(out, self.dropout, self.training,
+                               batch_view(generator, axis=1))
         return out.transpose(0, 1)

@@ -32,8 +32,10 @@ import torch.nn as nn
 from gantts_tpu_torch.kernels.linear_scan import linear_recurrence
 from gantts_tpu_torch.kernels.sru_scan import fused_sru_proj_layer
 from gantts_tpu_torch.models.common import (
+    batch_view,
     default_lengths,
     matmul_cast,
+    rand,
     uniform_,
 )
 
@@ -107,8 +109,8 @@ class SRU(nn.Module):
         if not self.training or rate <= 0.0:
             return x
         keep = 1.0 - rate
-        mask = torch.rand((1,) + tuple(x.shape[1:]), generator=generator,
-                          device=x.device) < keep
+        mask = rand((1,) + tuple(x.shape[1:]),
+                    batch_view(generator, axis=1), x.device) < keep
         return x * (mask.to(x.dtype) / keep)
 
     def forward(self, x, lengths=None, generator=None):

@@ -6,5 +6,4 @@ from gantts_tpu_torch.train.step import (  # noqa: F401
     GanTrainer,
     StepConfig,
     TrainState,
-    compute_distortions,
 )

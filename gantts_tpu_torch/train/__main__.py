@@ -36,9 +36,23 @@ capturing the graphs); ``--debug-nans`` stops at the first non-finite
 gradient norm or loss with a ``FloatingPointError`` that names the epoch,
 phase, batch and quantity, and runs one eager step at a time.
 
-Not here: train.py's multi-device flags (``--num-devices``,
-``--distributed`` and the coordinator's), and its compile-cache environment
-switch, a TPU matter.
+Data parallelism (``gantts_tpu_torch.parallel``), train.py's flags with its
+names and defaults: ``--num-devices N`` trains on N devices, one process
+each (0, the default, is all visible devices of ``--device``: every CUDA
+device, and 1 on ``cpu``; 1 is the single-device trainer).  N > 1 spawns N
+worker processes that form a group (NCCL on ``cuda``, each rank on
+``cuda:<rank>``; gloo on ``cpu``) and joins them; it fails if any fails.
+``--distributed`` joins a group started elsewhere instead (torchrun's
+environment, or ``--coordinator-address``, ``--num-processes`` and
+``--process-id``), one process per device, and trains data-parallel over
+the whole group, one rank included; ``--num-devices`` below the group's size
+is refused there, as in train.py.  Under data parallelism every rank reads
+the same corpus and steps on its rows of each global batch, the logged
+values are the global batch's, rank 0 alone writes the log and the
+checkpoints, and one step runs a dispatch (``--steps-per-dispatch`` 0 is 1;
+more is refused).
+
+Not here: train.py's compile-cache environment switch, a TPU matter.
 """
 
 from __future__ import annotations
@@ -94,13 +108,26 @@ def build_arg_parser():
                         "loss); one eager step at a time")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: cuda)")
+    p.add_argument("--num-devices", dest="num_devices", type=int, default=0,
+                   help="devices to train on data-parallel, one process "
+                        "each (0 = all visible: every CUDA device, 1 on "
+                        "cpu; 1 forces the single-device trainer)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a torch.distributed group started elsewhere "
+                        "(torchrun's environment or the coordinator flags)")
+    p.add_argument("--coordinator-address", dest="coordinator_address",
+                   default=None)
+    p.add_argument("--num-processes", dest="num_processes", type=int,
+                   default=None)
+    p.add_argument("--process-id", dest="process_id", type=int, default=None)
     return p
 
 
-def steps_per_dispatch(requested, device, debug_nans):
+def steps_per_dispatch(requested, device, debug_nans, data_parallel=False):
     """The K that ``--steps-per-dispatch`` asks for on ``device``: 0 is
     auto (16 on cuda, 1 on cpu); 1 under ``--debug-nans``.  K > 1 needs
-    CUDA graphs, so it is refused on any other device."""
+    CUDA graphs, so it is refused on any other device, and under data
+    parallelism, which runs one step a dispatch."""
     import torch
 
     kind = torch.device(device).type
@@ -110,26 +137,91 @@ def steps_per_dispatch(requested, device, debug_nans):
         raise ValueError(
             f"--steps-per-dispatch {requested} needs CUDA graphs: device "
             f"{device!r} runs one step at a time (1, or 0 for auto)")
-    if debug_nans:
+    if requested > 1 and data_parallel:
+        raise ValueError(
+            f"--steps-per-dispatch {requested}: data parallelism runs one "
+            f"step a dispatch (1, or 0 for auto)")
+    if debug_nans or data_parallel:
         return 1
     if requested == 0:
         return 16 if kind == "cuda" else 1
     return requested
 
 
+def num_devices(requested, device):
+    """The devices ``--num-devices`` asks for on ``device``'s kind: 0 is
+    all visible (``torch.cuda.device_count()`` on cuda, 1 on cpu)."""
+    import torch
+
+    cuda = torch.device(device).type == "cuda"
+    visible = torch.cuda.device_count() if cuda else 1
+    if requested < 0:
+        raise ValueError(f"--num-devices {requested}: not a count")
+    if requested == 0:
+        return max(visible, 1)
+    if cuda and requested > visible:
+        raise ValueError(f"--num-devices {requested}: {visible} CUDA "
+                         f"device(s) visible")
+    return requested
+
+
 def main(argv=None):
-    since = time.time()
+    argv = sys.argv[1:] if argv is None else list(argv)
     parser = build_arg_parser()
     args = parser.parse_args(argv)
     print("Command line args:\n", vars(args))
     try:
+        n = 1 if args.distributed else num_devices(args.num_devices,
+                                                   args.device)
         spd = steps_per_dispatch(args.steps_per_dispatch, args.device,
-                                 args.debug_nans)
+                                 args.debug_nans, args.distributed or n > 1)
     except ValueError as e:
         parser.error(str(e))
+
+    if args.distributed:
+        from gantts_tpu_torch.parallel import (
+            backend_for,
+            initialize_distributed,
+        )
+
+        mesh = initialize_distributed(
+            args.coordinator_address, args.num_processes, args.process_id,
+            backend=backend_for(args.device))
+        if 0 < args.num_devices < mesh.world:
+            # every process of the group owns one rank of the data axis
+            raise SystemExit(
+                f"--num-devices={args.num_devices} < {mesh.world} ranks is "
+                "not supported with --distributed: every process trains on "
+                "its rank. Start fewer processes instead.")
+        return train(args, spd, mesh)
+    if n > 1:
+        from gantts_tpu_torch.parallel import spawn
+
+        print(f"Spawning {n} data-parallel workers on {args.device}")
+        spawn("gantts_tpu_torch.train.__main__:train_rank", n,
+              args=(argv, spd), device=args.device)
+        return 0
+    return train(args, spd)
+
+
+def train_rank(argv, spd):
+    """One spawned worker of ``--num-devices N``: rank r of the group that
+    ``parallel.spawn`` formed, on its device."""
+    from gantts_tpu_torch.parallel import make_mesh
+
+    train(build_arg_parser().parse_args(argv), spd, make_mesh())
+
+
+def train(args, spd, mesh=None):
+    """Train as ``args`` say, ``spd`` steps a dispatch (the K of
+    ``steps_per_dispatch``); data-parallel over ``mesh`` (a
+    ``parallel.DataGroup``) when given."""
+    since = time.time()
     if args.debug_nans:
         print("--debug-nans: one eager step at a time "
               "(--steps-per-dispatch 1)")
+    device = args.device if mesh is None else mesh.device
+    rank0 = mesh is None or mesh.rank == 0
 
     from gantts_tpu_torch import hparams
     from gantts_tpu_torch.hparams import hparams_debug_string
@@ -170,7 +262,7 @@ def main(argv=None):
     loaders, Y_mean, Y_std = prepare(X, Y, utt_lengths, hp, data_dir)
 
     model_g, model_d, _, _, gstate, dstate = init_models_and_states(
-        hp, device=args.device)
+        hp, device=device)
     print("Generator:", model_g)
     print("Discriminator:", model_d)
 
@@ -181,7 +273,7 @@ def main(argv=None):
             state_dict, _, _ = load_checkpoint(args.checkpoint_r)
             model_ref = create_model(
                 hp.discriminator, compute_dtype=hp.compute_dtype,
-                device=args.device, **hp.discriminator_params)
+                device=device, **hp.discriminator_params)
             model_ref.load_state_dict(state_dict, strict=True)
         except (OSError, KeyError, RuntimeError, ValueError,
                 pickle.UnpicklingError) as e:
@@ -204,12 +296,21 @@ def main(argv=None):
     if log_event_path is None:
         log_event_path = "log/run-test" + str(np.random.randint(100000))
     print(f"Log event path: {log_event_path}")
-    writer = ScalarWriter(log_event_path)
+    writer = ScalarWriter(log_event_path) if rank0 else None
 
     cfg = StepConfig.from_hparams(hp, w_d, mse_w, mge_w, update_d, update_g,
                                   has_ref=model_ref is not None)
-    trainer = GanTrainer(cfg, Y_mean, Y_std, args.device,
-                         model_ref=model_ref, windows=hp.windows)
+    if mesh is None:
+        trainer = GanTrainer(cfg, Y_mean, Y_std, device,
+                             model_ref=model_ref, windows=hp.windows)
+    else:
+        from gantts_tpu_torch.parallel import DataParallelGanTrainer
+
+        print(f"Data-parallel over {mesh.world} devices: rank {mesh.rank} "
+              f"on {mesh.device}")
+        trainer = DataParallelGanTrainer(
+            cfg, Y_mean, Y_std, model_ref=model_ref, windows=hp.windows,
+            mesh=mesh, states=(gstate, dstate))
 
     print(f"Start training from epoch {global_epoch}, {spd} step(s) a "
           f"dispatch")
@@ -217,7 +318,8 @@ def main(argv=None):
         trainer, gstate, dstate, loaders, hp, w_d=w_d, mse_w=mse_w,
         mge_w=mge_w, update_d=update_d, update_g=update_g,
         checkpoint_dir=args.checkpoint_dir, writer=writer,
-        global_epoch=global_epoch, profile_dir=args.profile_dir,
+        global_epoch=global_epoch,
+        profile_dir=args.profile_dir if rank0 else None,
         debug_nans=args.debug_nans, steps_per_dispatch=spd)
 
     for state, enabled, name in [(gstate, update_g, "Generator"),
@@ -225,7 +327,8 @@ def main(argv=None):
         if enabled:
             save_checkpoint(state, final_epoch, args.checkpoint_dir, name)
 
-    writer.close()
+    if writer is not None:
+        writer.close()
     print(f"Finished! Elapsed: {(time.time() - since) / 60:.1f} min")
     return 0
 

@@ -7,7 +7,7 @@ holding {state_dict, optimizer, global_epoch}.  The port writes them with
 ``torch.save``: the model's ``state_dict`` (the JAX package's parameter names,
 see ``convert.py``) and the torch optimizer's.  A file is written to a
 temporary name and renamed, so a crash mid-write never leaves a corrupt
-checkpoint for the next stage.
+checkpoint for the next stage; under data parallelism rank 0 alone writes.
 
 ``load_checkpoint`` reads three formats, told apart by their first bytes,
 and executes no code from any file:
@@ -31,6 +31,7 @@ from os.path import join
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gantts_tpu_torch import convert
 from gantts_tpu_torch.train import flax_msgpack
@@ -40,15 +41,23 @@ ZIP_MAGIC = b"PK\x03\x04"
 
 def save_checkpoint(state, epoch, checkpoint_dir, name):
     """``state``: a TrainState (model, optimizer); ``name``: Generator or
-    Discriminator.  Returns the path written."""
+    Discriminator.  Returns the path written.
+
+    In a ``torch.distributed`` group the state is replicated, so rank 0
+    alone writes, and every rank then waits at a barrier: none goes on
+    before the file it may read next exists."""
     path = join(checkpoint_dir, f"checkpoint_epoch{epoch}_{name}.pth")
-    payload = {"state_dict": state.model.state_dict(),
-               "optimizer": state.optimizer.state_dict(),
-               "global_epoch": int(epoch)}
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    print("Saved checkpoint:", path)
+    grouped = dist.is_available() and dist.is_initialized()
+    if not grouped or dist.get_rank() == 0:
+        payload = {"state_dict": state.model.state_dict(),
+                   "optimizer": state.optimizer.state_dict(),
+                   "global_epoch": int(epoch)}
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        print("Saved checkpoint:", path)
+    if grouped:
+        dist.barrier()
     return path
 
 

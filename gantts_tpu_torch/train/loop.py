@@ -41,6 +41,14 @@ Two debugging aids, off by default (the CLI's ``--profile-dir`` and
 Randomness: the generator's input noise z comes from ``RandomState(seed)``
 on the host, as in the JAX package, so both draw the same z; dropout masks
 come from a ``torch.Generator`` on the device seeded with ``seed``.
+
+Data parallelism (a ``parallel.DataParallelGanTrainer``, one process a
+rank): every rank iterates the same global batches and draws the same z
+for each, and uploads only its rows (``trainer.put_batch``); one step a
+dispatch (K = 1), as the JAX loop runs on a mesh.  The step's outputs are
+already sums over the group, so every rank computes the same phase means
+and adversarial weight; rank 0 alone is given a ``writer`` by the command
+line, and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -184,9 +192,10 @@ def train_loop(trainer, gstate, dstate, dataset_loaders, hp, w_d=0.0,
                checkpoint_dir=None, writer=None, global_epoch=0, seed=1234,
                profile_dir=None, debug_nans=False, steps_per_dispatch=1):
     """Train epochs global_epoch + 1 .. hp.nepoch.  ``trainer`` is a
-    GanTrainer (with its reference discriminator when ``has_ref``); the
-    states are updated in place; ``steps_per_dispatch``: K, 1 under
-    ``debug_nans``.  Returns (gstate, dstate, final_epoch)."""
+    GanTrainer (with its reference discriminator when ``has_ref``) or a
+    ``parallel.DataParallelGanTrainer``; the states are updated in place;
+    ``steps_per_dispatch``: K, 1 under ``debug_nans`` and data
+    parallelism.  Returns (gstate, dstate, final_epoch)."""
     cfg = trainer.cfg
     device = trainer.device
     r_cache = RMatrixCache(hp.windows, device) if cfg.has_dynamic else None
@@ -194,7 +203,8 @@ def train_loop(trainer, gstate, dstate, dataset_loaders, hp, w_d=0.0,
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     stage = _Stager(device)
-    K = 1 if debug_nans else max(1, int(steps_per_dispatch))
+    K = max(1, int(steps_per_dispatch)) \
+        if trainer.supports_multi_step and not debug_nans else 1
     warm = set()  # (phase, shapes) that have taken an eager step
 
     E_loss_mge = 1.0
@@ -241,6 +251,9 @@ def train_loop(trainer, gstate, dstate, dataset_loaders, hp, w_d=0.0,
             for group in dispatch_groups(
                     batches, lambda b: (phase, b[0].shape, b[1].shape), K,
                     warm):
+                # this trainer's rows of each global batch (all of them
+                # but under data parallelism)
+                group = [trainer.put_batch(*b) for b in group]
                 xs, ys, ls, zs = ([b[j] for b in group] for j in range(4))
                 R = r_cache.get(xs[0].shape[1]) if r_cache is not None \
                     else None

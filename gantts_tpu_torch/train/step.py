@@ -29,6 +29,15 @@ a phase, and a CUDA graph reads it from there); the product is the same.
 ``GanTrainer.multi_step`` takes K same-shape batches stacked on a leading
 axis: on the card one replay of a CUDA graph of K steps (train/graphs.py),
 elsewhere K eager steps, which are its reference.
+
+Data parallelism (``gantts_tpu_torch.parallel``) enters through four seams
+that are the identity here: the rows of a global batch a trainer steps on
+(``put_batch``), sums over the group (``_global_sum`` for the global
+batch's valid frames, ``_global_sums`` for the losses, counts and the
+metrics' numerators and denominators, in one collective), and the
+gradients' sum between ``backward()`` and the optimizer (``_reduce_grads``).
+Every loss is this batch's sum over the global batch's valid frames, so the
+sums over the group are the single-device step's on the global batch.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from gantts_tpu_torch.core.streams import (
     select_streams,
 )
 from gantts_tpu_torch.models import include_parameter_generation
+from gantts_tpu_torch.models.common import batch_view
 from gantts_tpu_torch.train import metrics as M
 
 EPS = 1e-20
@@ -158,31 +168,31 @@ def _split_streams_inv_scale(y_static, Y_mean, Y_std, cfg: StepConfig):
     return mgc, lf0, vuv, bap
 
 
-def compute_distortions(y_static, y_hat_static, Y_mean, Y_std, mask,
-                        cfg: StepConfig):
-    """Distortion metrics of one batch, on the device."""
+def distortion_sums(y_static, y_hat_static, Y_mean, Y_std, mask,
+                    cfg: StepConfig):
+    """The numerator and denominator of each distortion metric of one
+    batch, on the device: name -> (num, den)."""
     if cfg.name == "acoustic":
         mgc, lf0, vuv, bap = _split_streams_inv_scale(
             y_static, Y_mean, Y_std, cfg)
         mgc_h, lf0_h, vuv_h, bap_h = _split_streams_inv_scale(
             y_hat_static, Y_mean, Y_std, cfg)
-        f0_mse = M.lf0_mean_squared_error(lf0, vuv, lf0_h, vuv_h, mask,
-                                          linear_domain=True)
         return {
-            "mcd": M.melcd(mgc[..., 1:], mgc_h[..., 1:], mask),
-            "bap_mcd": M.melcd(bap, bap_h, mask) / 10.0,
-            "f0_rmse": torch.sqrt(f0_mse),
-            "vuv_err": M.vuv_error(vuv, vuv_h, mask),
+            "mcd": M.melcd_sums(mgc[..., 1:], mgc_h[..., 1:], mask),
+            "bap_mcd": M.melcd_sums(bap, bap_h, mask),
+            "f0_rmse": M.lf0_sums(lf0, vuv, lf0_h, vuv_h, mask,
+                                  linear_domain=True),
+            "vuv_err": M.vuv_sums(vuv, vuv_h, mask),
         }
     elif cfg.name == "duration":
         a = y_static * Y_std + Y_mean
         b = y_hat_static * Y_std + Y_mean
-        return {"dur_rmse": torch.sqrt(M.mean_squared_error(a, b, mask))}
+        return {"dur_rmse": M.mse_sums(a, b, mask)}
     elif cfg.name == "vc":
         sd = cfg.order
         a = y_static * Y_std[:sd] + Y_mean[:sd]
         b = y_hat_static * Y_std[:sd] + Y_mean[:sd]
-        return {"mcd": M.melcd(a, b, mask)}
+        return {"mcd": M.melcd_sums(a, b, mask)}
     raise ValueError(f"Unknown step config name {cfg.name!r}")
 
 
@@ -208,6 +218,9 @@ class GanTrainer:
     discriminator (weights loaded), run in eval mode without gradient.
     ``windows`` serves ``mlpg_impl="stencil"`` only; without them the step
     takes the dense R, as the JAX package's does."""
+
+    # the loop may run K same-shape steps as one dispatch (multi_step)
+    supports_multi_step = True
 
     def __init__(self, cfg: StepConfig, Y_mean, Y_std, device,
                  model_ref=None, windows=None):
@@ -276,6 +289,26 @@ class GanTrainer:
         return gstate, dstate, {key: torch.stack([o[key] for o in outs])
                                 for key in outs[0]}
 
+    # The data-parallel seams (parallel.DataParallelGanTrainer): on one
+    # device each is the identity.
+    def put_batch(self, x, y, lengths, z=None):
+        """The rows of a global host batch that this trainer steps on: all
+        of them."""
+        return x, y, lengths, z
+
+    def _global_sum(self, t):
+        """``t`` summed over the data-parallel group."""
+        return t
+
+    def _global_sums(self, values):
+        """``values`` (name -> 0-dim tensor), each summed over the group in
+        one collective; on one device they stay as they are."""
+        return values
+
+    def _reduce_grads(self, module):
+        """Between ``backward()`` and the optimizer's step: the module's
+        gradients summed over the group (nothing on one device)."""
+
     def _step(self, gstate, dstate, x, y, lengths, R, adv_w, generator,
               train, z):
         cfg = self.cfg
@@ -284,7 +317,11 @@ class GanTrainer:
         model_d.train(train)
         T = x.shape[1]
         mask = sequence_mask(lengths, T)[..., None]
-        Tm = torch.sum(mask)
+        # The global batch's valid frames.  Every loss and count below is
+        # this batch's share of a sum over the global batch, so summing the
+        # shares (and the gradients) over a data-parallel group gives the
+        # single-device step on the global batch.
+        Tm = self._global_sum(torch.sum(mask))
         y_static = get_static_features(
             y, cfg.num_windows, cfg.stream_sizes, cfg.has_dynamic_features)
 
@@ -318,7 +355,7 @@ class GanTrainer:
             B0 = y_adv.shape[0]
             D_both = model_d(torch.cat([y_adv, y_hat_adv], dim=0),
                              torch.cat([lengths, lengths]),
-                             generator=generator)
+                             generator=batch_view(generator, parts=2))
             D_real, D_fake = D_both[:B0], D_both[B0:]
             loss_real_d = -torch.sum(_safe_log(D_real) * mask) / Tm
             loss_fake_d = -torch.sum(_safe_log(1 - D_fake) * mask) / Tm
@@ -326,6 +363,7 @@ class GanTrainer:
             if train:
                 dstate.optimizer.zero_grad()
                 loss_d.backward()
+                self._reduce_grads(model_d)
                 dstate.optimizer.step()
             out.update(
                 discriminator=loss_d.detach(),
@@ -336,8 +374,9 @@ class GanTrainer:
 
         # 4. generator update through the just-updated, frozen discriminator
         if cfg.update_g:
-            loss_mge = masked_mse_loss(y_hat_static, y_static, mask=mask)
-            loss_mse = masked_mse_loss(y_hat, y, mask=mask)
+            loss_mge = masked_mse_loss(y_hat_static, y_static, mask=mask,
+                                       denom=Tm)
+            loss_mse = masked_mse_loss(y_hat, y, mask=mask, denom=Tm)
             if cfg.use_adv:
                 with _frozen(model_d):
                     D_fake_g = model_d(adv_input(y_hat_static), lengths,
@@ -350,13 +389,21 @@ class GanTrainer:
             if train:
                 gstate.optimizer.zero_grad()
                 loss_g.backward()
+                self._reduce_grads(model_g)
                 gstate.optimizer.step()
             out.update(mse=loss_mse.detach(), mge=loss_mge.detach(),
                        loss_adv=loss_adv.detach(), generator=loss_g.detach())
 
-        # 5. distortion metrics, every batch
+        # 5. distortion metrics, every batch: their numerators and
+        # denominators summed with the losses and counts, then divided
         with torch.no_grad():
-            out.update(compute_distortions(
-                y_static, y_hat_static.detach(), self.Y_mean, self.Y_std,
-                mask, cfg))
+            sums = distortion_sums(y_static, y_hat_static.detach(),
+                                   self.Y_mean, self.Y_std, mask, cfg)
+        parts = dict(out)
+        for k, (num, den) in sums.items():
+            parts[f"{k}/num"], parts[f"{k}/den"] = num, den
+        parts = self._global_sums(parts)
+        out = {k: parts[k] for k in out}
+        out.update({k: M.FROM_SUMS[k](parts[f"{k}/num"], parts[f"{k}/den"])
+                    for k in sums})
         return gstate, dstate, out

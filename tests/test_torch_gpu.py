@@ -1435,3 +1435,65 @@ def test_graph_destroyed_inside_a_capture(cuda, cycle):
         assert "failed:" in out and "capture" in out, out
     else:
         assert "captured 2.0" in out, out
+
+
+# Data parallelism on the one card (gantts_tpu_torch/parallel/): spawned
+# rank processes run tests/torch_parallel_workers.py's programs.  NCCL takes
+# one rank per GPU, so a one-card machine checks NCCL at world size 1 and
+# the sharded math with two gloo ranks on the same card.
+
+SRU_LAUNCHES = {"sru_proj_gemm": 2, "sru_fwd_scan": 2, "sru_bwd_scan": 2}
+
+
+def test_dp_one_nccl_rank_is_the_plain_trainer(cuda, tmp_path):
+    """A one-rank NCCL group: DataParallelGanTrainer and GanTrainer from the
+    same states, 3 steps of a bidirectional SRU step with dropout on, give
+    the same bits in every scalar, parameter, optimizer value and the
+    dropout generator's state, with the same SRU launches; the time-sharded
+    MLPG at world size 1 matches the stencil."""
+    import torch_parallel_workers as W
+
+    from gantts_tpu_torch.core.fast_mlpg import unit_variance_mlpg_stencil
+    from gantts_tpu_torch.hparams import vc
+
+    u = np.random.RandomState(0).randn(2, 512, 15).astype(np.float32)
+    (res,) = W.run_session(1, dict(device="cuda:0",
+                                   world_one=W.port_case("sru", 6, T=96),
+                                   mlpg={512: u}),
+                           str(tmp_path), device="cuda")
+    got = res["world_one"]
+    assert got["backend"] == "nccl"
+    assert got["scalars"] and got["states"] and got["generator"]
+    dp, plain = got["launches"]
+    assert dp == plain
+    assert {k: dp[k] for k in SRU_LAUNCHES} == {
+        k: 3 * n for k, n in SRU_LAUNCHES.items()}
+    ref = unit_variance_mlpg_stencil(torch.as_tensor(u), vc.windows)
+    assert float((torch.as_tensor(res["mlpg512"]) - ref).abs().max()) < 5e-5
+
+
+def test_dp_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    """Two gloo ranks with their tensors on cuda:0 (the collectives staged
+    through the host) against one process on the whole batch, on the card:
+    tests/test_parallel.py's scalar limits, the summed gradients within
+    1e-5 of each tensor's largest entry, and both ranks' parameters the same
+    bits, for the SRU step and the vc step padded with a zero-length row."""
+    import torch_parallel_workers as W
+
+    cases = {"sru": W.port_case("sru", 8), "vc15": W.port_case("vc", 15)}
+    ranks = W.run_session(2, dict(device="cuda:0", steps=cases),
+                          str(tmp_path))
+    for name in cases:
+        single = ranks[0][name]["single"]
+        for res in ranks:
+            dp = res[name]["dp"]
+            for k, v in single["out"].items():
+                assert np.isclose(dp["out"][k], v, rtol=2e-4, atol=1e-5,
+                                  equal_nan=True), (name, k)
+            for which in ("grads_g", "grads_d"):
+                for k, g in single[which].items():
+                    err = float(np.abs(dp[which][k] - g).max())
+                    assert err <= 1e-5 * float(np.abs(g).max()), (name, k)
+            for which in ("g", "d"):
+                for k, v in ranks[0][name]["dp"][which].items():
+                    assert (dp[which][k] == v).all(), (name, k)

@@ -233,3 +233,39 @@ def test_f0_rmse_cause(f0_rmse_cause_found, label, blown, empty, f0):
         kind = ("nan" if math.isnan(got["f0_rmse"]) else
                 "inf" if math.isinf(got["f0_rmse"]) else "finite")
         assert kind == f0, split
+
+
+@pytest.mark.parametrize("gap,where,worst_above_1,anywhere", [
+    (0.0, 0, False, 0.0),      # the same parameters
+    (1e-5, 0, True, 1e-5),     # a moved entry whose sign cannot flip
+    (0.02, 1, False, 0.02),    # a near-zero gradient's entry: may flip
+])
+def test_dp_param_gaps(gap, where, worst_above_1, anywhere):
+    """Phase 12b's first-step parameter limit: entries whose gradient
+    lies well above the gradient limit are held to DP_FIRST_STEP_TOL plus
+    Adagrad's slope; those near zero (a sign may flip) are only counted."""
+    lr = 0.01
+    g = torch.tensor([1.0, 1e-7])
+    ref = torch.full((2,), 0.5) - lr * torch.sign(g)
+    got = ref.clone()
+    got[where] += gap
+    worst, any_gap, free = chip_smoke.dp_param_gaps(
+        [got], [ref], [g], [g * g], [1.0], lr, ["G.w"])
+    assert (worst > 1) == worst_above_1
+    assert any_gap == pytest.approx(anywhere, rel=1e-2)  # float32 ulps
+    assert free == 1
+
+
+@pytest.mark.parametrize("scale,ok", [(0.5, True), (2.0, False)])
+def test_dp_compare(scale, ok):
+    """Phase 12b's gradient limit is DP_GRAD_TOL of the model's largest
+    |entry| (G's or D's), not of each tensor's."""
+    ref = [torch.tensor([1.0, -0.5]), torch.tensor([1e-4])]
+    names = ["G.a", "G.b"]
+    grads = [ref[0].clone(), ref[1] + scale * chip_smoke.DP_GRAD_TOL]
+    out = {"loss": torch.tensor(1.0)}
+    worst_scalar, worst_grad, named = chip_smoke.dp_compare(
+        out, grads, out, ref, names)
+    assert worst_scalar == 0.0
+    assert (worst_grad <= 1) == ok
+    assert named[0].startswith("G.b")
