@@ -164,7 +164,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      (12c, beside 12b's comparison) the command line with --distributed
      (one NCCL rank through the coordinator flags) against without it,
      two epochs of 6b's configuration: the same logged bits, checkpoints
-     and launches.
+     and launches;
+ 13. the demo commands, ``python -m gantts_tpu_torch.demo vc`` and ``tts``
+     (vc_demo.sh and tts_demo.sh on the port), at the quality dossier's
+     --quick sizes from tests/fixtures.py's corpora, each in a process of
+     its own under the launch counters: every step must exit 0 (each
+     step's wall printed), every value of the four analysis.json files
+     must be finite, and the TTS half must launch sru_proj_gemm,
+     sru_fwd_scan and sru_bwd_scan.
 
 Each of (4) to (4h) ends with a torch.profiler trace of a few more
 of its steps, which prints where the device time goes and the idle share
@@ -3095,20 +3102,23 @@ def run_counted(argv):
     return rc
 
 
-def start_cli_process(argv, log_path, module="gantts_tpu_torch.train"):
+def start_cli_process(argv, log_path, module="gantts_tpu_torch.train",
+                      cwd=None, env=None):
     """Start ``python -m <module>`` on ``argv`` in a process of its own,
     under this script's --counted mode, its output to ``log_path`` (.out,
-    .err; its counts to .json)."""
+    .err; its counts to .json), in ``cwd`` (the repository by default)
+    with ``env`` added to this process's environment."""
     here = os.path.dirname(os.path.abspath(__file__))
     with open(log_path + ".out", "w") as out, \
             open(log_path + ".err", "w") as err:
         return subprocess.Popen(
             [sys.executable, os.path.join(here, "chip_smoke.py"), "--counted",
-             log_path + ".json", module, *argv], cwd=here,
-            stdout=out, stderr=err), time.time()
+             log_path + ".json", module, *argv], cwd=cwd or here,
+            env=dict(os.environ, **(env or {})), stdout=out,
+            stderr=err), time.time()
 
 
-def finish_cli_process(tag, job, log_path):
+def finish_cli_process(tag, job, log_path, phase="11"):
     """Wait for a started process.  Returns its launches, its wall
     seconds, the seconds before its command line started (Python and
     torch imported) and its standard error."""
@@ -3120,7 +3130,7 @@ def finish_cli_process(tag, job, log_path):
     if rc != 0:
         with open(log_path + ".out") as f:
             print("".join(f.readlines()[-40:]), err[-3000:])
-        fail(f"[11] {tag}: the command line exited {rc}")
+        fail(f"[{phase}] {tag}: the command line exited {rc}")
     with open(log_path + ".json") as f:
         counted = json.load(f)
     return counted["launches"], secs, counted["started"] - t0, err
@@ -4276,6 +4286,83 @@ def phase_data_parallel(card):
     return totals
 
 
+def finite_numbers(value):
+    """Every number in a JSON value, and whether all are finite."""
+    if isinstance(value, dict):
+        value = list(value.values())
+    if isinstance(value, list):
+        found = [finite_numbers(v) for v in value]
+        return sum(n for n, _ in found), all(ok for _, ok in found)
+    if isinstance(value, (int, float)) and not isinstance(value, bool):
+        return 1, math.isfinite(value)
+    return 0, True
+
+
+# the demo commands' steps, as each prints them ("demo <half>: <step>
+# exited <rc> in <s> s")
+DEMO_STEPS = {"vc": ["features", "curriculum", "evaluation baseline",
+                     "evaluation gan"],
+              "tts": ["features", "curriculum duration",
+                      "curriculum acoustic", "evaluation baseline",
+                      "evaluation gan"]}
+SRU_KERNELS = ("sru_proj_gemm", "sru_fwd_scan", "sru_bwd_scan")
+
+
+def phase_demos(card, tmp):
+    """13: ``python -m gantts_tpu_torch.demo vc`` and ``tts`` on the card
+    at the quality dossier's --quick sizes (tools/torch_quality_dossier.py:
+    12 parallel VC pairs and 10 TTS utterances from tests/fixtures.py's
+    corpora, 3 epochs, G and D warm-up 1 epoch, W_D 0.2), each in a
+    process of its own under this script's --counted mode, one after the
+    other.  Every step must exit 0, every value of the four analysis.json
+    files must be finite, and the TTS half must launch the SRU kernels.
+    Returns the two processes' launches."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    from torch_quality_dossier import make_corpora, settings
+
+    n_vc, n_tts, vc_env, tts_env = settings(True, 10, "0.2", "")
+    corpora = make_corpora(tmp, n_vc, n_tts)
+    launches = {k: 0 for k in KERNELS}
+    for half, env in (("vc", vc_env), ("tts", tts_env)):
+        log = os.path.join(tmp, f"demo_{half}")
+        job = start_cli_process([half, "smoke", corpora[half]], log,
+                                module="gantts_tpu_torch.demo", cwd=tmp,
+                                env=env)
+        counts, secs, startup, _ = finish_cli_process(f"demo {half}", job,
+                                                      log, phase="13")
+        with open(log + ".out") as f:
+            walls = [line.split(": ", 1)[1].strip() for line in f
+                     if line.startswith(f"demo {half}: ")
+                     and " exited " in line]
+        names = [w.split(" exited ")[0] for w in walls]
+        if names != DEMO_STEPS[half] or not all(
+                " exited 0 in " in w for w in walls):
+            fail(f"[13] demo {half}: the steps ran as {walls}, not "
+                 f"{DEMO_STEPS[half]} with exit code 0")
+        for w in walls:
+            print(f"[13] demo {half}: {w}  [{card}]")
+        print(f"[13] demo {half}: {secs:.1f} s in all ({startup:.1f} s "
+              f"to start Python and torch); launches "
+              f"{ {k: n for k, n in counts.items() if n} }  [{card}]")
+        for kind in ("baseline", "gan"):
+            path = os.path.join(tmp, "generated", f"{half}_smoke_{kind}",
+                                "analysis.json")
+            with open(path) as f:
+                n, ok = finite_numbers(json.load(f))
+            print(f"[13] demo {half} {kind}: analysis.json holds {n} "
+                  f"values, all finite: {ok}")
+            if not n or not ok:
+                fail(f"[13] demo {half} {kind}: analysis.json has a value "
+                     f"that is not finite, or none")
+        if half == "tts" and not all(counts.get(k) for k in SRU_KERNELS):
+            fail(f"[13] demo tts: the SRU kernels did not all launch: "
+                 f"{counts}")
+        for k in KERNELS:
+            launches[k] += counts.get(k, 0)
+    return launches
+
+
 def main_paths():
     """Phase 4's paths: (tag, hparams, launches a step of each kernel,
     expected parameter counts of the generator and the discriminator,
@@ -4422,8 +4509,14 @@ def main():
             launches[k] += n
     for k, n in phase_data_parallel(card).items():
         launches[k] += n
+    with tempfile.TemporaryDirectory() as demo_tmp:
+        t0 = time.perf_counter()
+        for k, n in phase_demos(card, demo_tmp).items():
+            launches[k] += n
+        print(f"[13] the demo commands took {time.perf_counter() - t0:.1f} "
+              f"s")
 
-    # launches: the main paths' runs, 4-4h, 6, 7, 8, 9, 10, 11 and 12
+    # launches: the main paths' runs, 4-4h, 6, 7, 8, 9, 10, 11, 12 and 13
     # (sru_proj_gemm and the scans serve several)
     print(f"[end] all phases passed in {time.perf_counter() - started:.1f} s")
     kernels = [dict({"name": k, "route": "cuda", "source": src,

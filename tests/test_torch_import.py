@@ -103,7 +103,9 @@ def test_native_loader_reads_nothing_under_the_jax_package():
 
 
 def test_port_sources_name_no_jax():
-    """No source file of the port, nor chip_smoke.py, imports jax, flax,
+    """No source file of the port, nor chip_smoke.py, nor
+    tools/torch_quality_dossier.py (which runs on the card's machine),
+    imports jax, flax,
     msgpack, optax or the JAX package, or names a path under gantts_tpu/ in
     a string, or loads a module by file path.  Docstrings and comments
     name their counterparts as gantts_tpu/<file>, and chip_smoke.py's
@@ -117,7 +119,9 @@ def test_port_sources_name_no_jax():
     sources = [join(root, f) for root, _, files in os.walk(PORT)
                for f in files if f.endswith((".py", ".cu"))]
     sources.append(join(REPO, "chip_smoke.py"))
+    sources.append(join(REPO, "tools", "torch_quality_dossier.py"))
     assert join(PORT, "train", "graphs.py") in sources
+    assert join(PORT, "demo.py") in sources
     found = []
     for src in sources:
         with open(src) as fh:
