@@ -171,11 +171,30 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      its own under the launch counters: every step must exit 0 (each
      step's wall printed), every value of the four analysis.json files
      must be finite, and the TTS half must launch sru_proj_gemm,
-     sru_fwd_scan and sru_bwd_scan.
+     sru_fwd_scan and sru_bwd_scan;
+ 14. the profiling tools (tools/torch_profile_step.py,
+     torch_trace_report.py, torch_host_pipeline_bench.py), right after
+     (6b): (14a) the profile of the shipped float32 step at full width
+     with --layer-ablation and --trace-dir, in a process of its own (this
+     script's --counted mode: every plain version refused, the launches
+     counted): every row finite and positive, its eager full
+     step's device ms within 10% of phase 4g's busy, the five kernels of
+     its path launched, fused_sru_layer (the scan from u, kernel row 3)
+     launched and held to the plain scans at T=512, B=20, H=512, and the
+     report inferring the --trace-dir trace's 3 steps; (14b) the same in
+     bfloat16 without the ablation; (14c) the report on phase 6's eager and
+     6b's replayed --profile-dir traces: the steps it infers from the
+     dispatch annotations equal the steps the loop logged for epoch 2, and
+     on the eager trace each kernel's launches a step equal the launch
+     counters' (on the replayed one the ratio is printed); (14d) the
+     streamed-epoch bench on a synthetic full-width vc corpus (173
+     training utterances), 3 epochs a loader setting, its JSON line
+     finite.
 
 Each of (4) to (4h) ends with a torch.profiler trace of a few more
 of its steps, which prints where the device time goes and the idle share
-the trace measured (nothing is written to disk).
+the trace measured (read back from a temporary Chrome trace by
+tools/torch_trace_report.py, the reader of every trace here).
 
 The last lines are a JSON object describing each kernel (its launches on
 the main paths, its largest error against its plain version, its time, the
@@ -212,7 +231,8 @@ LINEAR_SOURCE = "gantts_tpu_torch/kernels/csrc/linear_scan.cu"
 # kernel -> (source, the Pallas kernels it replaces)
 KERNELS = {
     "sru_proj_gemm": (SRU_SOURCE, "gantts_tpu/kernels/sru_scan.py:560"),
-    "sru_fwd_scan": (SRU_SOURCE, "gantts_tpu/kernels/sru_scan.py:569"),
+    "sru_fwd_scan": (SRU_SOURCE, "gantts_tpu/kernels/sru_scan.py:569, "
+                     "also :218"),
     "sru_bwd_scan": (SRU_SOURCE, "gantts_tpu/kernels/sru_scan.py:272"),
     "lstm_fwd_scan": (LSTM_SOURCE, "gantts_tpu/kernels/lstm_scan.py:624, "
                       "also :162 and :421"),
@@ -483,11 +503,11 @@ def sass_problems(counts, table=SASS_RULES):
     return problems
 
 
-def check(kernel, what, dt, D, got, ref, lim, errs):
+def check(kernel, what, dt, D, got, ref, lim, errs, tag="3"):
     rel, ab = rel_err(got, ref)
     ok = rel <= lim and math.isfinite(rel)
     shape = f"D={D:4d}" if D else "      "
-    print(f"[3] {kernel:13s} {what:5s} {str(dt)[6:]:8s} {shape}"
+    print(f"[{tag}] {kernel:13s} {what:5s} {str(dt)[6:]:8s} {shape}"
           f" rel_err={rel:.3e} abs_err={ab:.3e} limit={lim:.0e}"
           f" {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -930,6 +950,8 @@ def trace_kernels(what, fn, card, calls=3):
     call, from torch.profiler: where a layer's time goes."""
     from torch.profiler import ProfilerActivity, profile
 
+    from tools.torch_trace_report import profile_events, read
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -937,10 +959,9 @@ def trace_kernels(what, fn, card, calls=3):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    per_name = ms_by_name(device_events(prof), calls)
-    total = sum(per_name.values())
-    print(f"[3] {what}: device events {total:.4f} ms a call  [{card}]")
-    for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:10]:
+    r = read(profile_events(prof), calls, key=full_name)
+    print(f"[3] {what}: device events {r.summed_ms:.4f} ms a call  [{card}]")
+    for name, ms in sorted(r.ms.items(), key=lambda kv: -kv[1])[:10]:
         print(f"[3]   {ms:8.4f} ms  {name[:100]}")
 
 
@@ -1641,40 +1662,16 @@ def phase_graphs(dev, card, tag, hp, per_step, make_batch):
           f"rounds of {K} steps: " + "; ".join(
               f"{a:.3f}, {b:.3f}" for a, b in rounds) +
           f"; medians {med[0]:.3f} and {med[1]:.3f}  [{card}]")
-    names = phase_profile(f"4i-{tag}", lambda n: run_steps(n, True), med[1],
-                          card, steps=K)
-    named = kernels_named(names or (), [k for k, n in per_step.items() if n])
+    reading = phase_profile(f"4i-{tag}", lambda n: run_steps(n, True),
+                            med[1], card, steps=K)
+    named = kernels_named(reading.ms if reading else (),
+                          [k for k, n in per_step.items() if n])
     print(f"[4i] {tag} the trace of a replay names the path's kernels: "
           f"{named}")
     if not all(named.values()):
         fail(f"step {tag}: the trace of a replay does not name {named}")
     print(f"[4i] {tag} took {time.perf_counter() - t_start:.1f} s")
     return totals
-
-
-def _union_us(intervals):
-    """Total length of the union of (start, end) intervals."""
-    total, end = 0.0, -math.inf
-    for a, b in sorted(intervals):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total
-
-
-KERNEL_GROUPS = (("sru_proj_gemm", ("proj_gemm",)),
-                 ("sru_fwd_scan", ("sru_fwd_scan",)),
-                 ("sru_bwd_scan", ("sru_bwd_scan",)),
-                 ("lstm_fwd_scan", ("lstm_fwd_kernel",
-                                    "lstm_fwd_cluster_kernel",
-                                    "lstm_fwd_flag_kernel")),
-                 ("lstm_bwd_scan", ("lstm_bwd_kernel",
-                                    "lstm_bwd_cluster_kernel",
-                                    "lstm_bwd_flag_kernel")),
-                 ("linear_recurrence_fwd", ("linear_recurrence_fwd",)),
-                 ("linear_recurrence_bwd", ("linear_recurrence_bwd",)),
-                 ("library GEMMs (dx, dW, D, head, MLPG)",
-                  ("gemm", "cutlass", "xmma", "cublas", "nvjet")))
 
 
 def kernels_named(names, kernels):
@@ -1687,40 +1684,24 @@ def kernels_named(names, kernels):
             for k in kernels}
 
 
-def device_events(prof):
-    """The device events of a torch.profiler trace: kernels, copies and
-    fills.  Device-side copies of host ranges (record_function and the
-    optimizer's annotations) are user annotations, not device work: they
-    are left out."""
-    from torch.autograd import DeviceType
-
-    events = prof.events()
-    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
-    return [e for e in events if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and e.name not in host_names
-            and e.time_range.end > e.time_range.start]
-
-
-def ms_by_name(events, calls):
-    """Device ms per call of each name among ``events``."""
-    per_name = {}
-    for e in events:
-        per_name[e.name] = per_name.get(e.name, 0.0) + \
-            (e.time_range.end - e.time_range.start) / 1e3 / calls
-    return per_name
+def full_name(event):
+    """A trace event's key in chip_smoke's breakdowns: its whole name."""
+    return event["name"]
 
 
 def phase_profile(tag, run_steps, ms_unprofiled, card, steps=PROFILE_STEPS):
-    """Trace ``steps`` more main-path steps with torch.profiler.
+    """Trace ``steps`` more main-path steps with torch.profiler, read by
+    tools/torch_trace_report.py.
 
     Device busy time is the union of the trace's device intervals (kernels,
     copies, fills; not annotations); the idle share is 1 - busy / the
     traced wall span of the steps, both from this one trace.  The profiler
     adds host time per launch, so that idle share is an upper bound for an
-    unprofiled step.  Returns the device events' names, or None when the
-    trace holds no device activity."""
+    unprofiled step.  Returns the report's reading, by the device events'
+    full names, or None when the trace holds no device activity."""
     from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tools.torch_trace_report import group_ms, profile_events, read
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1728,37 +1709,23 @@ def phase_profile(tag, run_steps, ms_unprofiled, card, steps=PROFILE_STEPS):
         with record_function("chip_smoke_steps"):
             run_steps(steps)
             torch.cuda.synchronize()
-    span = [e for e in prof.events() if e.name == "chip_smoke_steps"]
-    dev = device_events(prof)
-    if not span or not dev:
+    try:
+        r = read(profile_events(prof), steps, span="chip_smoke_steps",
+                 key=full_name)
+    except ValueError:  # no device event, or no range of the steps
         print(f"[{tag}P] the trace holds no device activity: device time not "
               f"measured  [{card}]")
         return None
-    t0, t1 = span[0].time_range.start, span[0].time_range.end
-    wall = (t1 - t0) / 1e3 / steps
-    busy = _union_us([(e.time_range.start, e.time_range.end)
-                      for e in dev]) / 1e3 / steps
-    per_name = ms_by_name(dev, steps)
-    summed = sum(per_name.values())
-    print(f"[{tag}P] {steps} traced steps: wall {wall:.3f} ms/step "
-          f"(unprofiled {ms_unprofiled:.3f}), device busy {busy:.3f} "
-          f"ms/step, idle share {1 - busy / wall:.4f} of the traced wall; "
-          f"device events summed {summed:.3f} ms/step  [{card}]")
-    groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
-    rest = 0.0
-    for name, t in per_name.items():
-        low = name.lower()
-        for g, keys in KERNEL_GROUPS:
-            if any(k in low for k in keys):
-                groups[g] += t
-                break
-        else:
-            rest += t
-    for g, t in list(groups.items()) + [("the rest", rest)]:
-        print(f"[{tag}P]   {g:40s} {t:8.3f} ms/step {100 * t / summed:5.1f}%")
-    for name, t in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
+    print(f"[{tag}P] {steps} traced steps: wall {r.wall_ms:.3f} ms/step "
+          f"(unprofiled {ms_unprofiled:.3f}), device busy {r.busy_ms:.3f} "
+          f"ms/step, idle share {r.idle:.4f} of the traced wall; "
+          f"device events summed {r.summed_ms:.3f} ms/step  [{card}]")
+    for g, t in group_ms(r.ms):
+        print(f"[{tag}P]   {g:40s} {t:8.3f} ms/step "
+              f"{100 * t / r.summed_ms:5.1f}%")
+    for name, t in sorted(r.ms.items(), key=lambda kv: -kv[1])[:12]:
         print(f"[{tag}P]   top {t:8.3f} ms/step  {name[:90]}")
-    return set(per_name)
+    return r
 
 
 # Phases 5-5c: the small float32 acoustic steps, by tag
@@ -1962,7 +1929,29 @@ def phase_linear_kernels(dev, card, errs):
                 *times["linear_recurrence_bwd"], 5 * n * 4, 3 * n, f32)}
 
 
-def phase_cli(card):
+def logged_steps(text, epoch=None):
+    """The steps that the training loop's per-phase dispatch lines in a
+    command's output report, over ``epoch`` (default: every epoch)."""
+    import re
+
+    return sum(int(n) for e, n in re.findall(
+        r"epoch (\d+), (?:train|test) phase: (\d+) steps", text)
+        if epoch is None or int(e) == epoch)
+
+
+def kept_trace(src, keep, tag, out_path, counts):
+    """Phase 14's copy of a ``--profile-dir`` trace of epoch 2 (``src``) in
+    ``keep``, with what the run that wrote it logged and launched: the
+    steps of epoch 2 and of the run, and the run's launches."""
+    dst = os.path.join(keep, f"{tag}_trace_epoch2.json")
+    shutil.copy(src, dst)
+    with open(out_path) as f:
+        text = f.read()
+    return dict(path=dst, logged=logged_steps(text, 2),
+                run_steps=logged_steps(text), counts=counts)
+
+
+def phase_cli(card, keep):
     """Phase 6: ``python -m gantts_tpu_torch.train``'s main() on a synthetic
     corpus of 30 utterances (200-512 frames, 425 -> 187 dims) in a
     temporary directory: two epochs of (4c)'s configuration (the 6x512
@@ -1975,7 +1964,8 @@ def phase_cli(card):
     (check_profile), and that the run with ``--debug-nans`` ran clean;
     prints each phase's valid frames/s and both resumed stages' wall times.
     The command line's own output goes to a log, whose tail is printed if
-    it fails.  Returns the launch counts of all three stages."""
+    it fails.  Returns the launch counts of all three stages and the
+    trace, kept in ``keep`` for phase 14 (``kept_trace``)."""
     from gantts_tpu_torch import hparams
     from gantts_tpu_torch.data import NPYDataSource
     from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -2035,12 +2025,16 @@ def phase_cli(card):
                          f"{counts[k]} times, its steps need {n}")
             for k, n in counts.items():
                 totals[k] = totals.get(k, 0) + n
+            if tag == "2":
+                traced = (out_path, counts)
             for name in ("Generator", "Discriminator"):
                 path = os.path.join(ck_dir, f"checkpoint_epoch{nepoch}_"
                                     f"{name}.pth")
                 if not os.path.exists(path):
                     fail(f"no checkpoint {os.path.basename(path)}")
         check_profile(prof, card)
+        trace = kept_trace(os.path.join(prof, "trace_epoch2.json"), keep,
+                           "6", *traced)
         print(f"[6] the resumed stage: {walls['3']:.2f} s, with --debug-nans "
               f"{walls['3 --debug-nans']:.2f} s (ran clean)  [{card}]")
         with open(os.path.join(tmp, "log_dn", "scalars.jsonl")) as f:
@@ -2060,10 +2054,10 @@ def phase_cli(card):
                   f"frames/s  [{card}]")
     print(f"[6] {len(rows)} logged values, all finite; "
           f"{len({r['tag'] for r in rows})} series")
-    return totals
+    return totals, trace
 
 
-def phase_cli_dispatch(card):
+def phase_cli_dispatch(card, keep):
     """Phase 6b: the training command line with ``--steps-per-dispatch 1``
     and at its default (16 on the card), two epochs each of (4c)'s
     configuration at batch_size 2 on a synthetic corpus of 44 utterances
@@ -2073,7 +2067,10 @@ def phase_cli_dispatch(card):
     launched the same kernels as often and logged the same values (the
     wall-clock series apart), bit for bit, and unless the trace of epoch 2
     names each kernel the run launched among the kernels that its graph
-    replays launched.  Returns the launch counts of both runs."""
+    replays launched.  Returns the launch counts of both runs and the
+    trace, kept in ``keep`` for phase 14 (``kept_trace``)."""
+    from tools.torch_trace_report import load_events
+
     from gantts_tpu_torch import hparams
     from gantts_tpu_torch.kernels import launch_counts, reset_launch_counts
     from gantts_tpu_torch.train.__main__ import main as train_main
@@ -2136,8 +2133,7 @@ def phase_cli_dispatch(card):
             fail(f"the logged series differ: {diff}")
         print(f"[6b] {len(a)} logged values, the same bits with 1 step a "
               f"dispatch and at the default (wall-clock series apart)")
-        with open(os.path.join(prof, "trace_epoch2.json")) as f:
-            events = json.load(f)["traceEvents"]
+        events = load_events(os.path.join(prof, "trace_epoch2.json"))
         # a kernel a replay ran carries its cudaGraphLaunch's correlation
         launches = {e.get("args", {}).get("correlation") for e in events
                     if "GraphLaunch" in e.get("name", "")
@@ -2155,7 +2151,9 @@ def phase_cli_dispatch(card):
         if not all(named.values()):
             fail(f"the trace of an epoch in graph replays does not name "
                  f"each kernel among those its replays launched: {named}")
-    return totals
+        trace = kept_trace(os.path.join(prof, "trace_epoch2.json"), keep,
+                           "6b", os.path.join(tmp, "default.out"), c2)
+    return totals, trace
 
 
 def check_profile(prof, card):
@@ -2164,9 +2162,10 @@ def check_profile(prof, card):
     written = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
     if written != ["trace_epoch2.json"]:
         fail(f"--profile-dir wrote {written}, expected trace_epoch2.json")
+    from tools.torch_trace_report import KERNEL_GROUPS, load_events
+
     path = os.path.join(prof, written[0])
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
+    events = load_events(path)
     kernels = {e.get("name", "") for e in events
                if e.get("cat") == "kernel"}
     named = {g: any(k in n.lower() for n in kernels for k in keys)
@@ -4363,6 +4362,215 @@ def phase_demos(card, tmp):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the profiling tools (tools/torch_profile_step.py,
+# torch_trace_report.py, torch_host_pipeline_bench.py)
+# ---------------------------------------------------------------------------
+
+PIPELINE_FILES = 200  # 14d: 195 split 173 train / 22 test, 5 held out
+PIPELINE_EPOCHS = 3   # 14d: measured epochs a loader setting
+# Limit on |profile tool's eager 4g device ms / phase 4's 4g busy - 1|: two
+# readers of the same work, whose traces differ in their steps' inputs
+PROFILE_AGREE = 0.10
+# The port's kernels that each profile run must launch (14a, 14b)
+PROFILE_KERNELS = SRU_KERNELS + ("lstm_fwd_scan", "lstm_bwd_scan")
+ROW3 = ("1 fused kernel fwd", "1 fused kernel fwd+bwd")  # fused_sru_layer
+
+
+def write_vc_npy_corpus(dst, num=PIPELINE_FILES, order=VC_STATIC, seed=0):
+    """A parallel corpus of 3 * ``order``-dim features, the layout of
+    tests/make_synthetic_data.py --kind vc (80-219 frames an utterance, the
+    target a fixed warp of the source), by the port's own window code:
+    ``dst/X`` and ``dst/Y``."""
+    from gantts_tpu_torch.core.windows import DEFAULT_WINDOWS, delta_features
+
+    rs = np.random.RandomState(seed)
+    for sub in ("X", "Y"):
+        os.makedirs(os.path.join(dst, sub), exist_ok=True)
+    for i in range(num):
+        n = int(rs.randint(80, 220)) // 2 * 2
+        src = 3.0 * _smooth(rs, n, order)
+        tgt = 0.8 * src + 0.4 * np.roll(src, 1, axis=1) + 0.1
+        for sub, v in (("X", src), ("Y", tgt)):
+            np.save(os.path.join(dst, sub, f"utt_{i:04d}.npy"),
+                    delta_features(v, DEFAULT_WINDOWS).astype(np.float32))
+
+
+def check_profile_rows(tag, res, card):
+    """Every row of a torch_profile_step run finite and positive, in both
+    columns."""
+    for r in res["rows"]:
+        for col in ("wall_ms", "device_ms"):
+            v = r[col]
+            if v is None or not (math.isfinite(v) and v > 0):
+                fail(f"[{tag}] torch_profile_step's {r['name']!r} has "
+                     f"{col} {v}")
+    print(f"[{tag}] {len(res['rows'])} rows, every wall and device time "
+          f"finite and positive  [{card}]")
+
+
+def profile_tool_run(tag, argv, card, tmp):
+    """``python -m tools.torch_profile_step`` on ``argv`` in a process of
+    its own, under this script's --counted mode (every plain version
+    refused, its launches counted), its table printed and its rows read
+    from its --json file: (its rows, its launches).  A process of its own:
+    in this one, traces taken after phase 6b have lost most or all of
+    their device events (four runs on an H100), in a fresh one none."""
+    log = os.path.join(tmp, f"profile_{tag}")
+    job = start_cli_process([*argv, f"--json={log}.rows.json"], log,
+                            module="tools.torch_profile_step")
+    counts, secs, startup, _ = finish_cli_process(tag, job, log, phase=tag)
+    with open(log + ".out") as f:
+        print("".join(f"[{tag}] {line}" for line in f if line.strip()),
+              end="")
+    with open(log + ".rows.json") as f:
+        res = json.load(f)
+    print(f"[{tag}] torch_profile_step {' '.join(argv)}: {secs:.1f} s "
+          f"({startup:.1f} s to start Python and torch), launches "
+          f"{ {k: n for k, n in counts.items() if n} }  [{card}]")
+    counts = {k: counts.get(k, 0) for k in KERNELS}
+    missing = [k for k in PROFILE_KERNELS if not counts[k]]
+    if missing:
+        fail(f"[{tag}] the profile run launched none of {missing}")
+    check_profile_rows(tag, res, card)
+    return res, counts
+
+
+def check_fused_sru_layer(dev, errs):
+    """14a: fused_sru_layer's h and u-gradient, by the profile tool's own
+    components on its inputs (T=512, B=20, H=512, float32, relu), against
+    the plain scans: the plain backward reads the kernel forward's c, as
+    phase 3 does.  Returns the largest absolute errors (h, du)."""
+    from gantts_tpu_torch.kernels import sru_scan as K
+    from tools.torch_profile_step import build_components, make_hp
+
+    comps = build_components(make_hp("float32"), B, T, dev,
+                             layer_ablation=True)
+    h = comps.row(ROW3[0])()
+    du = comps.row(ROW3[1])()
+    u = torch.as_tensor(comps.arrays["u1"], device=dev)
+    lengths = torch.as_tensor(comps.arrays["lengths"], device=dev)
+    bias4 = torch.zeros(u.shape[-1], device=dev)
+    h_p, c_p = K.sru_fwd_scan_plain(u, bias4, lengths, False, 1)
+    c_k = K.sru_fwd_scan(u, bias4, lengths, False, 1)[1]
+    du_p, _ = K.sru_bwd_scan_plain(u, bias4, lengths, c_k, 2 * h.float(),
+                                   False, 1)
+    for kernel, what, got, ref, lim in (
+            ("sru_fwd_scan", "h", h, h_p, TOL[torch.float32]),
+            ("sru_fwd_scan", "c", c_k, c_p, TOL_F32_STATE),
+            ("sru_bwd_scan", "du", du, du_p, TOL[torch.float32])):
+        check(kernel, what + " 14a", torch.float32, None, got, ref, lim,
+              errs, tag="14a")
+    return rel_err(h, h_p)[1], rel_err(du, du_p)[1]
+
+
+def read_kept_trace(tag, trace, eager, card):
+    """14c: tools/torch_trace_report.py on a kept --profile-dir trace (its
+    command line's table, then its reading): the steps it infers from the
+    dispatch annotations must be the steps the loop logged for epoch 2,
+    and on an eager trace each kernel's launches a step must be the launch
+    counters' (the run's launches over the run's logged steps)."""
+    from tools import torch_trace_report as report
+
+    report.main([trace["path"], "--top", "10"])
+    events = report.load_events(trace["path"])
+    r = report.read(events)
+    print(f"[14c] phase {tag}: the report infers {r.steps} steps, the loop "
+          f"logged {trace['logged']} for epoch 2; device busy "
+          f"{r.busy_ms:.3f} ms/step, idle share {r.idle:.4f}  [{card}]")
+    if r.steps != trace["logged"]:
+        fail(f"[14c] phase {tag}: the trace's dispatch annotations hold "
+             f"{r.steps} steps, the loop logged {trace['logged']}")
+    traced = report.kernel_launches(events)
+    for k, n in traced.items():
+        counted = trace["counts"].get(k, 0)
+        if not (n or counted):
+            continue
+        a, b = n / r.steps, counted / trace["run_steps"]
+        same = n * trace["run_steps"] == counted * r.steps
+        print(f"[14c] phase {tag}: {k} {a:g} launches a step in the trace, "
+              f"{b:g} on the counters ({counted} in {trace['run_steps']} "
+              f"steps)" + ("" if eager else
+                           f", ratio {a / b if b else math.inf:.4f} (a "
+                           f"trace of graph replays may drop kernel events: "
+                           f"printed, not checked)"))
+        if eager and not same:
+            fail(f"[14c] phase {tag}: {k} launches {a} a step in the "
+                 f"trace, {b} on the launch counters")
+
+
+def phase_tools(dev, card, busy_4g, traces, errs):
+    """14: the profiling tools on the card.  (a) torch_profile_step at full
+    width in float32 with --layer-ablation and --trace-dir, in a process
+    of its own (``profile_tool_run``): every row finite and
+    positive, the eager full step's device ms within PROFILE_AGREE of phase
+    4's 4g busy, fused_sru_layer (kernel row 3: its first launches on any
+    path) against the plain scans, the --trace-dir trace read by the
+    report; (b) the same in bfloat16 without the ablation; (c) the report
+    on phase 6's eager and 6b's replayed --profile-dir traces
+    (``read_kept_trace``); (d) torch_host_pipeline_bench on a synthetic
+    full-width vc corpus, PIPELINE_EPOCHS epochs a setting.  Returns the
+    launches of (a) and (b)."""
+    from tools import torch_host_pipeline_bench, torch_trace_report
+
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir = os.path.join(tmp, "trace")
+        res, counts = profile_tool_run(
+            "14a", ["--layer-ablation", f"--trace-dir={trace_dir}"], card,
+            tmp)
+        launches = dict(counts)
+        full = res["rows"][0]
+        gap = full["device_ms"] / busy_4g - 1
+        print(f"[14a] the eager full step: {full['device_ms']:.3f} ms of "
+              f"device time from the tool's trace, phase 4g's busy "
+              f"{busy_4g:.3f} ms/step: {gap:+.4f} (limit "
+              f"{PROFILE_AGREE})  [{card}]")
+        if not abs(gap) <= PROFILE_AGREE:
+            fail(f"[14a] the tool's full step reads {full['device_ms']} ms, "
+                 f"phase 4g {busy_4g} ms")
+        rows = {r["name"]: r for r in res["rows"]}
+        row3 = {k: 0 for k in KERNELS}
+        for name, want in zip(ROW3, ({"sru_fwd_scan": 1},
+                                     {"sru_fwd_scan": 1, "sru_bwd_scan": 1})):
+            if rows[name]["launches"] != want:
+                fail(f"[14a] {name!r} launched {rows[name]['launches']} a "
+                     f"call, not {want}")
+            for k, n in want.items():
+                row3[k] += n * rows[name]["calls"]
+        h_err, du_err = check_fused_sru_layer(dev, errs)
+        print(f"[14a] kernel row 3 (fused_sru_layer from u): "
+              f"{row3['sru_fwd_scan']} launches of sru_fwd_scan, "
+              f"{row3['sru_bwd_scan']} of sru_bwd_scan; max abs err h "
+              f"{h_err:.3e}, du {du_err:.3e}")
+        traced = torch_trace_report.read(
+            torch_trace_report.load_events(trace_dir))
+        print(f"[14a] --trace-dir: the report infers {traced.steps} steps "
+              f"(3 written), device busy {traced.busy_ms:.3f} ms/step  "
+              f"[{card}]")
+        if traced.steps != 3:
+            fail(f"[14a] the --trace-dir trace holds {traced.steps} steps")
+        _, counts = profile_tool_run(
+            "14b", ["--compute-dtype", "bfloat16"], card, tmp)
+    for k, n in counts.items():
+        launches[k] += n
+    for tag, eager in (("6", True), ("6b", False)):
+        read_kept_trace(tag, traces[tag], eager, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_vc_npy_corpus(tmp)
+        with plain_versions_forbidden():
+            out = torch_host_pipeline_bench.main(
+                [os.path.join(tmp, "X"), os.path.join(tmp, "Y"),
+                 f"--epochs={PIPELINE_EPOCHS}"])
+    n, ok = finite_numbers(out)
+    print(f"[14d] the pipeline line holds {n} numbers, all finite: {ok}  "
+          f"[{card}]")
+    if not ok:
+        fail("[14d] the pipeline bench printed a value that is not finite")
+    print(f"[14] took {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
 def main_paths():
     """Phase 4's paths: (tag, hparams, launches a step of each kernel,
     expected parameter counts of the generator and the discriminator,
@@ -4409,27 +4617,27 @@ def run_path(dev, card, tag, hp, per_step, n_expected, make_batch, unit,
     (phase_main_path), its trace (phase_profile) and, where it launches the
     LSTM scans and ``require_design``, the trace's proof that they ran the
     design of the path's dtype (DESIGN).  Returns the launch counts of the
-    timed steps."""
+    timed steps and the trace's reading (None without device activity)."""
     from gantts_tpu_torch.kernels.sru_scan import io_dtype
 
     with plain_versions_forbidden():
         counts, ms, run_steps = phase_main_path(dev, card, tag, hp, per_step,
                                                 n_expected, make_batch, unit)
-        names = phase_profile(tag, run_steps, ms, card)
+        reading = phase_profile(tag, run_steps, ms, card)
         if tag in DEBUG_NANS_PATHS:
             debug_nans_cost(tag, card, run_steps)
     design = DESIGN[io_dtype(hp.compute_dtype)]
     for way in ("fwd", "bwd"):
         if not (require_design and counts[f"lstm_{way}_scan"]) or \
-                names is None:
+                reading is None:
             continue
-        took = any(f"lstm_{way}_{design}_kernel" in n for n in names)
+        took = any(f"lstm_{way}_{design}_kernel" in n for n in reading.ms)
         print(f"[{tag}] the trace holds lstm_{way}_scan's {design} kernel: "
               f"{took}")
         if not took:
             fail(f"step {tag}: lstm_{way}_scan did not run its {design} "
                  f"kernel")
-    return counts
+    return counts, reading
 
 
 def main():
@@ -4476,8 +4684,11 @@ def main():
     phase_synthesis_kernels(dev, card, errs)
     recs["sru_proj_gemm"]["f32"] = phase_f32_gemm(dev, card, errs)
     launches = {k: 0 for k in KERNELS}
+    busy = {}
     for path in main_paths():
-        for k, n in run_path(dev, card, *path).items():
+        counts, reading = run_path(dev, card, *path)
+        busy[path[0]] = reading.busy_ms if reading else None
+        for k, n in counts.items():
             launches[k] += n
     for tag, hp, per_step, _, make_batch, _ in main_paths():
         with plain_versions_forbidden():
@@ -4491,10 +4702,18 @@ def main():
     phase_small_step(dev, "5e", vc_hp(
         "float32", "In2OutRNNHighwayNet", num_hidden=2, hidden_dim=64,
         dropout=0.0), probe=in2out_probe)
-    for k, n in phase_cli(card).items():
-        launches[k] += n
-    for k, n in phase_cli_dispatch(card).items():
-        launches[k] += n
+    with tempfile.TemporaryDirectory() as keep:  # 6 and 6b's traces
+        traces = {}
+        for tag, run in (("6", phase_cli), ("6b", phase_cli_dispatch)):
+            counts, traces[tag] = run(card, keep)
+            for k, n in counts.items():
+                launches[k] += n
+        # phase 14, while 6 and 6b's traces are at hand
+        if busy["4g"] is None:
+            fail("phase 4g's trace held no device activity: phase 14 has "
+                 "no busy time to hold the profile tool to")
+        for k, n in phase_tools(dev, card, busy["4g"], traces, errs).items():
+            launches[k] += n
     for k, n in phase_curriculum(card).items():
         launches[k] += n
     with tempfile.TemporaryDirectory() as vc_tmp, \
@@ -4516,8 +4735,9 @@ def main():
         print(f"[13] the demo commands took {time.perf_counter() - t0:.1f} "
               f"s")
 
-    # launches: the main paths' runs, 4-4h, 6, 7, 8, 9, 10, 11, 12 and 13
-    # (sru_proj_gemm and the scans serve several)
+    # launches: the main paths' runs, 4-4h, 6, 7, 8, 9, 10, 11, 12, 13 and
+    # 14 (sru_proj_gemm and the scans serve several; sru_fwd_scan's count
+    # holds kernel row 3's, fused_sru_layer's, printed by phase 14a)
     print(f"[end] all phases passed in {time.perf_counter() - started:.1f} s")
     kernels = [dict({"name": k, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[k],

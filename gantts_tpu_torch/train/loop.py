@@ -24,6 +24,13 @@ the dropout generator and the noise drawn as the unfused run draws them
 this phase kind runs alone and eagerly: it is the warm-up a capture needs,
 and a real step.
 
+Each dispatch, one ``trainer.step`` or one ``trainer.multi_step`` of K
+steps with its host staging, runs inside a host range named
+``gan_dispatch:K`` (``dispatch_span``, torch.profiler's
+``record_function``), so that a trace says how many steps it holds
+(tools/torch_trace_report.py); the range costs a few microseconds a
+dispatch when no profiler runs, and changes no launch and no value.
+
 Two debugging aids, off by default (the CLI's ``--profile-dir`` and
 ``--debug-nans``):
 
@@ -64,6 +71,7 @@ from gantts_tpu_torch.train.checkpoint import save_checkpoint
 from gantts_tpu_torch.train.optim import exp_decayed_lr, set_learning_rate
 
 CHECKPOINT_INTERVAL = 10  # reference train.py:66
+DISPATCH_SPAN = "gan_dispatch"  # a dispatch's host range: "gan_dispatch:K"
 
 
 def adv_weight(w_d, e_mge, e_adv):
@@ -156,6 +164,39 @@ class _Stager:
 
     def put(self, arrays):
         return self.host(arrays).to(self.device, non_blocking=True)
+
+
+def dispatch_span(K):
+    """The host range of one dispatch of K steps, for the profiler's
+    trace."""
+    return torch.profiler.record_function(f"{DISPATCH_SPAN}:{K}")
+
+
+def run_dispatch(trainer, gstate, dstate, group, stage, R, adv_w, generator,
+                 train, check=None):
+    """One dispatch of a phase: ``group``'s batches (x, y, lengths, z), host
+    arrays, this trainer's rows of each (``put_batch``) as one eager step
+    or, for K > 1, one ``multi_step``, inside ``dispatch_span(K)``.
+    ``check(out)`` reads a one-step dispatch's outputs (``debug_nans``).
+    Returns (gstate, dstate, outs), each of outs (K,)."""
+    with dispatch_span(len(group)):
+        group = [trainer.put_batch(*b) for b in group]
+        xs, ys, ls, zs = ([b[j] for b in group] for j in range(4))
+        noise = trainer.cfg.add_noise
+        if len(group) == 1:
+            gstate, dstate, out = trainer.step(
+                gstate, dstate, stage.put(xs)[0], stage.put(ys)[0],
+                stage.put(ls)[0], R, adv_w, generator=generator, train=train,
+                z=stage.put(zs)[0] if noise else None)
+            if check is not None:
+                check(out)
+            return gstate, dstate, {k: v.reshape(1) for k, v in out.items()}
+        # the stacked batch stays on the host: a graph copies it into its
+        # static inputs without blocking
+        return trainer.multi_step(
+            gstate, dstate, stage.host(xs), stage.host(ys), stage.host(ls), R,
+            adv_w, generator=generator, train=train,
+            zs=stage.host(zs) if noise else None)
 
 
 def _start_profile(device):
@@ -251,30 +292,17 @@ def train_loop(trainer, gstate, dstate, dataset_loaders, hp, w_d=0.0,
             for group in dispatch_groups(
                     batches, lambda b: (phase, b[0].shape, b[1].shape), K,
                     warm):
-                # this trainer's rows of each global batch (all of them
-                # but under data parallelism)
-                group = [trainer.put_batch(*b) for b in group]
-                xs, ys, ls, zs = ([b[j] for b in group] for j in range(4))
-                R = r_cache.get(xs[0].shape[1]) if r_cache is not None \
-                    else None
+                R = r_cache.get(group[0][0].shape[1]) \
+                    if r_cache is not None else None
                 where = f"epoch {epoch}, {phase} phase, batch {count}"
-                if len(group) == 1:
-                    gstate, dstate, out = trainer.step(
-                        gstate, dstate, stage.put(xs)[0], stage.put(ys)[0],
-                        stage.put(ls)[0], R, adv_w_dev, generator=gen,
-                        train=train,
-                        z=stage.put(zs)[0] if cfg.add_noise else None)
-                    if debug_nans:
-                        _require_finite_losses(out, where, [
-                            (name, opt.grad_norm) for name, opt in norms])
-                    out = {k: v.reshape(1) for k, v in out.items()}
-                else:  # the stacked batch stays on the host: a graph
-                    # copies it into its static inputs without blocking
-                    gstate, dstate, out = trainer.multi_step(
-                        gstate, dstate, stage.host(xs), stage.host(ys),
-                        stage.host(ls), R, adv_w_dev, generator=gen,
-                        train=train,
-                        zs=stage.host(zs) if cfg.add_noise else None)
+                check = (lambda out, where=where: _require_finite_losses(
+                    out, where, [(name, opt.grad_norm)
+                                 for name, opt in norms])) \
+                    if debug_nans else None
+                gstate, dstate, out = run_dispatch(
+                    trainer, gstate, dstate, group, stage, R, adv_w_dev, gen,
+                    train, check)
+                if len(group) > 1:
                     fused += len(group)
                 for k, v in out.items():
                     acc.setdefault(k, []).append(v)

@@ -15,6 +15,9 @@ torch.set_num_threads(1)
 REPO = dirname(dirname(os.path.abspath(__file__)))
 PORT = join(REPO, "gantts_tpu_torch")
 JAX_PACKAGE = join(REPO, "gantts_tpu")
+# the tools that run on the card's machine, beside the port
+TOOLS = ("torch_quality_dossier", "torch_trace_report", "torch_profile_step",
+         "torch_host_pipeline_bench")
 MODULES = sorted(
     "gantts_tpu_torch" + "".join(
         "." + p for p in os.path.relpath(join(root, f), PORT)
@@ -30,10 +33,10 @@ def _run(code):
 
 
 def test_port_imports_without_jax():
-    """A fresh interpreter that imports every module of the port (and uses
-    its host code) has neither jax nor gantts_tpu loaded, nor flax,
-    msgpack or optax (the card's machine has none of them), and no loaded
-    module's file lies under gantts_tpu/."""
+    """A fresh interpreter that imports every module of the port and the
+    profiling tools (and uses the port's host code) has neither jax nor
+    gantts_tpu loaded, nor flax, msgpack or optax (the card's machine has
+    none of them), and no loaded module's file lies under gantts_tpu/."""
     assert "gantts_tpu_torch.train.__main__" in MODULES
     assert "gantts_tpu_torch.kernels.linear_scan" in MODULES
     assert "gantts_tpu_torch.curriculum" in MODULES
@@ -53,6 +56,7 @@ def test_port_imports_without_jax():
     proc = _run(
         "import importlib, os, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        f"for t in {TOOLS[1:]!r}: importlib.import_module('tools.' + t)\n"
         "from gantts_tpu_torch import hparams\n"
         "from gantts_tpu_torch.core.windows import "
         "unit_variance_mlpg_matrix\n"
@@ -103,9 +107,9 @@ def test_native_loader_reads_nothing_under_the_jax_package():
 
 
 def test_port_sources_name_no_jax():
-    """No source file of the port, nor chip_smoke.py, nor
-    tools/torch_quality_dossier.py (which runs on the card's machine),
-    imports jax, flax,
+    """No source file of the port, nor chip_smoke.py, nor the tools that
+    run on the card's machine (TOOLS: the quality dossier and the
+    profiling tools), imports jax, flax,
     msgpack, optax or the JAX package, or names a path under gantts_tpu/ in
     a string, or loads a module by file path.  Docstrings and comments
     name their counterparts as gantts_tpu/<file>, and chip_smoke.py's
@@ -119,7 +123,8 @@ def test_port_sources_name_no_jax():
     sources = [join(root, f) for root, _, files in os.walk(PORT)
                for f in files if f.endswith((".py", ".cu"))]
     sources.append(join(REPO, "chip_smoke.py"))
-    sources.append(join(REPO, "tools", "torch_quality_dossier.py"))
+    sources += [join(REPO, "tools", f"{t}.py") for t in TOOLS]
+    assert all(os.path.exists(src) for src in sources)
     assert join(PORT, "train", "graphs.py") in sources
     assert join(PORT, "demo.py") in sources
     found = []
