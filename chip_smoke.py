@@ -5,8 +5,9 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
-(``chip_smoke.py --counted OUT MODULE ARGS...`` is phase 11's helper: it
-runs one command line in a process of its own and writes its launches.)
+(``chip_smoke.py --counted OUT MODULE ARGS...`` is the helper of phases 11,
+13, 14 and 15: it runs one command line in a process of its own and writes
+its launches.)
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -189,6 +190,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      counters' (on the replayed one the ratio is printed); (14d) the
      streamed-epoch bench on a synthetic full-width vc corpus (173
      training utterances), 3 epochs a loader setting, its JSON line
+     finite.
+ 15. the last tools, started with phase 13 and run beside it: (15a) the
+     TTS GAN knob sweep (tools/torch_tts_gan_sweep.py) at 24 utterances,
+     the anchor point and the programs' seed, at full width (the shipped
+     float32 6x512 bidirectional SRU, batch 8), in a process of its own
+     under the launch counters with every plain version refused: every
+     stage must exit 0, the baseline's and the point's rows must be finite
+     and from cuda, sru_proj_gemm, sru_fwd_scan and sru_bwd_scan must
+     launch, and the tree's RESULTS_torch.md and
+     docs/tts_gan_sweep_torch.json must stay byte for byte as they were;
+     (15b,
+     beside 15a, host only) tools/torch_copy_synthesis_bench.py --n 6,
+     torch_fidelity_decomp.py and torch_fidelity_diag.py, each in a process
+     of its own: every one must exit 0, the bench's every value within 1e-3
+     of vocoder_fidelity.json's (the largest gap printed with its key, and
+     the machine's numpy and scipy), every row the diagnostics print
      finite.
 
 Each of (4) to (4h) ends with a torch.profiler trace of a few more
@@ -4571,6 +4588,170 @@ def phase_tools(dev, card, busy_4g, traces, errs):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the knob sweep (tools/torch_tts_gan_sweep.py) and the vocoder
+# fidelity bench with its two diagnostics
+# ---------------------------------------------------------------------------
+
+SWEEP_ARGS = ["--num-utts=24", "--points=anchor_wd1", "--seeds=1234"]
+SWEEP_ROWS = ("baseline@24/seed1234", "anchor_wd1@24/seed1234")
+SWEEP_KEPT = ("RESULTS_torch.md", os.path.join("docs",
+                                               "tts_gan_sweep_torch.json"))
+FIDELITY_LIMIT = 1e-3  # of vocoder_fidelity.json's values (4 digits kept)
+FIDELITY_TOOLS = {"bench": ["torch_copy_synthesis_bench.py", "--n", "6"],
+                  "decomp": ["torch_fidelity_decomp.py"],
+                  "diag": ["torch_fidelity_diag.py"]}
+
+
+def numbers_in(text):
+    """The numbers among a text's whitespace-separated words."""
+    found = []
+    for word in text.split():
+        try:
+            found.append(float(word))
+        except ValueError:
+            pass
+    return found
+
+
+def start_sweep(tmp):
+    """15a: tools/torch_tts_gan_sweep.py at SWEEP_ARGS (24 utterances, the
+    anchor point, the programs' seed) at full width (the shipped float32
+    6x512 bidirectional SRU, batch 8), started in a process of its own
+    under this script's --counted mode.  Returns the job and the bytes of
+    the tree's own sweep results (SWEEP_KEPT), which it must leave as they
+    are."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    kept = {}
+    for name in SWEEP_KEPT:
+        with open(os.path.join(here, name), "rb") as f:
+            kept[name] = f.read()
+    job = start_cli_process([*SWEEP_ARGS, f"--root={tmp}/work",
+                             f"--out={os.path.join(tmp, 'sweep_rows.json')}"],
+                            os.path.join(tmp, "sweep"),
+                            module="tools.torch_tts_gan_sweep")
+    return job, kept
+
+
+def finish_sweep(card, tmp, job, kept):
+    """15a's checks: every stage exited 0 (a failed one raises in the
+    child), both rows are finite and from cuda, the SRU kernels launched,
+    and the tree's sweep results are byte for byte what they were.
+    Returns the process's launches."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    counts, secs, startup, _ = finish_cli_process(
+        "sweep", job, os.path.join(tmp, "sweep"), phase="15a")
+    for name, data in kept.items():
+        with open(os.path.join(here, name), "rb") as f:
+            if f.read() != data:
+                fail(f"[15a] the sweep rewrote the tree's {name}")
+    with open(os.path.join(tmp, "sweep_rows.json")) as f:
+        rows = json.load(f)
+    for key in SWEEP_ROWS:
+        row = rows.get(key)
+        if row is None:
+            fail(f"[15a] the sweep wrote no row {key}: {sorted(rows)}")
+        n, ok = finite_numbers(row)
+        print(f"[15a] {key}: {json.dumps(row)}")
+        if not (n and ok) or row["device"] != "cuda":
+            fail(f"[15a] {key} holds a value that is not finite, or none, "
+                 f"or ran on {row['device']}")
+    print(f"[15a] the sweep (torch_tts_gan_sweep {' '.join(SWEEP_ARGS)}): "
+          f"{secs:.1f} s beside phase 13 ({startup:.1f} s to start Python "
+          f"and torch); launches { {k: n for k, n in counts.items() if n} }"
+          f"  [{card}]")
+    missing = [k for k in SRU_KERNELS if not counts.get(k)]
+    if missing:
+        fail(f"[15a] the sweep launched none of {missing}")
+    for k in SRU_KERNELS:
+        print(f"[15a] {k}: {counts[k]} launches")
+    return {k: counts.get(k, 0) for k in KERNELS}
+
+
+def start_fidelity_tools(tmp):
+    """15b: the fidelity bench (``--n 6``) and both diagnostics, each in a
+    process of its own, all started together.  Returns {name: (process,
+    output path)}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    jobs = {}
+    for name, (script, *args) in FIDELITY_TOOLS.items():
+        if name == "bench":
+            args += ["--out", os.path.join(tmp, "vocoder_fidelity.json")]
+        path = os.path.join(tmp, f"fidelity_{name}.out")
+        with open(path, "w") as f:
+            jobs[name] = (subprocess.Popen(
+                [sys.executable, os.path.join(here, "tools", script), *args],
+                cwd=here, stdout=f, stderr=subprocess.STDOUT), path)
+    return jobs
+
+
+def finish_fidelity_tools(card, tmp, jobs):
+    """15b's checks: every tool exits 0; the bench's JSON has
+    vocoder_fidelity.json's keys and every value within FIDELITY_LIMIT of
+    it (the largest gap and its key printed); every row the diagnostics
+    print holds finite numbers."""
+    import scipy
+
+    from tools.torch_copy_synthesis_bench import largest_gap
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    for name, (proc, path) in jobs.items():
+        rc = proc.wait(timeout=900)
+        with open(path) as f:
+            text = f.read()
+        print(f"[15b] {' '.join(FIDELITY_TOOLS[name])}: exit {rc}")
+        if rc != 0:
+            print(text[-3000:])
+            fail(f"[15b] {FIDELITY_TOOLS[name][0]} exited {rc}")
+        if name == "bench":
+            print("".join(f"[15b] {line}\n" for line in text.splitlines()
+                          if line.startswith("host front end")), end="")
+            continue
+        rows = [line for line in text.splitlines()
+                if line.strip() and not line.startswith("variant")]
+        for line in rows:
+            print(f"[15b] {name}: {line}")
+        if not rows or not all(
+                numbers_in(line) and all(map(math.isfinite, numbers_in(line)))
+                for line in rows):
+            fail(f"[15b] {name} printed a row without finite numbers")
+    with open(os.path.join(tmp, "vocoder_fidelity.json")) as f:
+        got = json.load(f)
+    with open(os.path.join(here, "vocoder_fidelity.json")) as f:
+        want = json.load(f)
+    print(f"[15b] workload: {got['workload']}")
+    try:
+        key, gap = largest_gap(got, want)
+    except ValueError as e:
+        fail(f"[15b] the bench's {e}")
+    print(f"[15b] the bench against vocoder_fidelity.json: largest gap "
+          f"{gap:.6g} at {key} (limit {FIDELITY_LIMIT}); numpy "
+          f"{np.__version__}, scipy {scipy.__version__}")
+    if gap > FIDELITY_LIMIT:
+        fail(f"[15b] the fidelity bench moved {key} by {gap}")
+
+
+def start_quality_tools(tmp):
+    """15: (a) the knob sweep and (b) the fidelity tools (host only), all
+    started together before phase 13 and run beside it.  Returns what
+    finish_quality_tools takes."""
+    return start_sweep(tmp), start_fidelity_tools(tmp)
+
+
+def quality_processes(started):
+    (job, _), jobs = started
+    return [job[0]] + [proc for proc, _ in jobs.values()]
+
+
+def finish_quality_tools(card, tmp, started):
+    """15's checks, once phase 13 is done.  Returns the sweep's
+    launches."""
+    (job, kept), jobs = started
+    launches = finish_sweep(card, tmp, job, kept)
+    finish_fidelity_tools(card, tmp, jobs)
+    return launches
+
+
 def main_paths():
     """Phase 4's paths: (tag, hparams, launches a step of each kernel,
     expected parameter counts of the generator and the discriminator,
@@ -4728,15 +4909,24 @@ def main():
             launches[k] += n
     for k, n in phase_data_parallel(card).items():
         launches[k] += n
-    with tempfile.TemporaryDirectory() as demo_tmp:
+    with tempfile.TemporaryDirectory() as demo_tmp, \
+            tempfile.TemporaryDirectory() as quality_tmp:
         t0 = time.perf_counter()
-        for k, n in phase_demos(card, demo_tmp).items():
-            launches[k] += n
-        print(f"[13] the demo commands took {time.perf_counter() - t0:.1f} "
-              f"s")
+        quality = start_quality_tools(quality_tmp)  # phase 15, beside 13
+        try:
+            for k, n in phase_demos(card, demo_tmp).items():
+                launches[k] += n
+            print(f"[13] the demo commands took "
+                  f"{time.perf_counter() - t0:.1f} s")
+            for k, n in finish_quality_tools(card, quality_tmp,
+                                             quality).items():
+                launches[k] += n
+        finally:
+            stop_processes(quality_processes(quality))
+        print(f"[13, 15] took {time.perf_counter() - t0:.1f} s")
 
-    # launches: the main paths' runs, 4-4h, 6, 7, 8, 9, 10, 11, 12, 13 and
-    # 14 (sru_proj_gemm and the scans serve several; sru_fwd_scan's count
+    # launches: the main paths' runs, 4-4h, 6, 7, 8, 9, 10, 11, 12, 13, 14
+    # and 15 (sru_proj_gemm and the scans serve several; sru_fwd_scan's count
     # holds kernel row 3's, fused_sru_layer's, printed by phase 14a)
     print(f"[end] all phases passed in {time.perf_counter() - started:.1f} s")
     kernels = [dict({"name": k, "route": "cuda", "source": src,

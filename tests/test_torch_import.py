@@ -1,6 +1,7 @@
 """The port imports without JAX and without a CUDA toolkit, and takes a
 kernel's plain version only for CPU tensors."""
 
+import ast
 import os
 import re
 import subprocess
@@ -15,9 +16,20 @@ torch.set_num_threads(1)
 REPO = dirname(dirname(os.path.abspath(__file__)))
 PORT = join(REPO, "gantts_tpu_torch")
 JAX_PACKAGE = join(REPO, "gantts_tpu")
-# the tools that run on the card's machine, beside the port
+# the tools that run on the card's machine, beside the port: every tool but
+# the CPU comparisons of both packages (torch_dossier_vs_jax,
+# torch_stage5_vs_jax)
 TOOLS = ("torch_quality_dossier", "torch_trace_report", "torch_profile_step",
-         "torch_host_pipeline_bench")
+         "torch_host_pipeline_bench", "torch_gemm_f32_ab",
+         "torch_lstm_f32_parts", "torch_lstm_fwd_parts",
+         "torch_linear_fwd_shapes", "torch_tts_gan_sweep",
+         "torch_copy_synthesis_bench", "torch_fidelity_decomp",
+         "torch_fidelity_diag")
+CPU_COMPARISONS = ("torch_dossier_vs_jax", "torch_stage5_vs_jax")
+# the JAX package's tools, which a tool of the port must not import
+JAX_TOOLS = sorted(f.removesuffix(".py")
+                   for f in os.listdir(join(REPO, "tools"))
+                   if f.endswith(".py") and not f.startswith("torch_"))
 MODULES = sorted(
     "gantts_tpu_torch" + "".join(
         "." + p for p in os.path.relpath(join(root, f), PORT)
@@ -33,10 +45,11 @@ def _run(code):
 
 
 def test_port_imports_without_jax():
-    """A fresh interpreter that imports every module of the port and the
-    profiling tools (and uses the port's host code) has neither jax nor
-    gantts_tpu loaded, nor flax, msgpack or optax (the card's machine has
-    none of them), and no loaded module's file lies under gantts_tpu/."""
+    """A fresh interpreter that imports every module of the port and every
+    tool that runs on the card's machine (and uses the port's host code)
+    has neither jax nor gantts_tpu loaded, nor flax, msgpack or optax (the
+    card's machine has none of them), nor a tool of the JAX package, and no
+    loaded module's file lies under gantts_tpu/."""
     assert "gantts_tpu_torch.train.__main__" in MODULES
     assert "gantts_tpu_torch.kernels.linear_scan" in MODULES
     assert "gantts_tpu_torch.curriculum" in MODULES
@@ -56,14 +69,16 @@ def test_port_imports_without_jax():
     proc = _run(
         "import importlib, os, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
-        f"for t in {TOOLS[1:]!r}: importlib.import_module('tools.' + t)\n"
+        f"for t in {TOOLS!r}: importlib.import_module('tools.' + t)\n"
         "from gantts_tpu_torch import hparams\n"
         "from gantts_tpu_torch.core.windows import "
         "unit_variance_mlpg_matrix\n"
         "unit_variance_mlpg_matrix(hparams.tts_acoustic.windows, 16)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'gantts_tpu',\n"
-        "                                    'flax', 'msgpack', 'optax'))\n"
+        "                                    'flax', 'msgpack', 'optax')\n"
+        "             or m.startswith('tools.')\n"
+        "             and not m.startswith('tools.torch_'))\n"
         f"jax_dir = {JAX_PACKAGE!r} + os.sep\n"
         "bad += sorted(m.__name__ for m in list(sys.modules.values())\n"
         "              if os.path.abspath(getattr(m, '__file__', None) or '')"
@@ -106,12 +121,30 @@ def test_native_loader_reads_nothing_under_the_jax_package():
         assert not path.startswith(join(REPO, "cpp", "build")), path
 
 
+def _imported_modules(text):
+    """The modules a source imports, named as tools/ names them: a module
+    of tools/ (``from tools import x``, ``tools.x``) by its file name, any
+    other by its full name (``from x import ...``, after a sys.path entry
+    for tools/)."""
+    names = set()
+    for node in ast.walk(ast.parse(text)):
+        if isinstance(node, ast.Import):
+            names |= {a.name.removeprefix("tools.") for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            if node.module == "tools":
+                names |= {a.name for a in node.names}
+            else:
+                names.add(node.module.removeprefix("tools."))
+    return names
+
+
 def test_port_sources_name_no_jax():
     """No source file of the port, nor chip_smoke.py, nor the tools that
-    run on the card's machine (TOOLS: the quality dossier and the
-    profiling tools), imports jax, flax,
-    msgpack, optax or the JAX package, or names a path under gantts_tpu/ in
-    a string, or loads a module by file path.  Docstrings and comments
+    run on the card's machine (TOOLS: every tools/torch_*.py but the two
+    CPU comparisons of both packages), imports jax, flax,
+    msgpack, optax, the JAX package or a tool of the JAX package, or names a
+    path under gantts_tpu/ in a string, or loads a module by file path.
+    Docstrings and comments
     name their counterparts as gantts_tpu/<file>, and chip_smoke.py's
     kernel records name the TPU kernel each replaces as
     "gantts_tpu/<file>:<line>": neither is a path that code could open."""
@@ -131,9 +164,20 @@ def test_port_sources_name_no_jax():
     for src in sources:
         with open(src) as fh:
             text = fh.read()
-        if imports.search(text) or paths.search(text):
+        if imports.search(text) or paths.search(text) or (
+                src.endswith(".py") and _imported_modules(text)
+                & set(JAX_TOOLS)):
             found.append(src)
     assert found == []
+    for line in ("from tools.copy_synthesis_bench import FS",
+                 "from copy_synthesis_bench import mcd",
+                 "from tools import report, tts_gan_sweep as s",
+                 "import tools.fidelity_decomp"):
+        assert _imported_modules(line) & set(JAX_TOOLS), line
+    for line in ("from tools.torch_copy_synthesis_bench import FS",
+                 "from tools import torch_trace_report as report",
+                 "from torch_quality_dossier import settings"):
+        assert not _imported_modules(line) & set(JAX_TOOLS), line
     for line in ("import flax", "    from msgpack import packb",
                  "import optax as o", "from jax import numpy",
                  "from flax.serialization import msgpack_restore",
@@ -145,6 +189,22 @@ def test_port_sources_name_no_jax():
     assert paths.search("open('gantts_tpu/core/windows.py')")
     assert not paths.search('"replaces": "gantts_tpu/kernels/x.py:85"')
     assert not paths.search('"gantts_tpu_torch/kernels/csrc/x.cu"')
+
+
+def test_every_card_side_tool_is_guarded():
+    """TOOLS names every tools/torch_*.py but the CPU comparisons, which
+    need the JAX package; the JAX package's tools are the rest."""
+    ported = {f.removesuffix(".py") for f in os.listdir(join(REPO, "tools"))
+              if f.startswith("torch_") and f.endswith(".py")}
+    assert ported == set(TOOLS) | set(CPU_COMPARISONS)
+    assert not set(TOOLS) & set(CPU_COMPARISONS)
+    for t in CPU_COMPARISONS:  # each imports JAX or runs train.py
+        with open(join(REPO, "tools", f"{t}.py")) as fh:
+            assert re.search(r"^\s*(import|from) (jax|gantts_tpu)\b"
+                             r'|"train\.py"', fh.read(), re.M), t
+    assert {"copy_synthesis_bench", "fidelity_decomp", "fidelity_diag",
+            "tts_gan_sweep", "profile_step", "quality_dossier"} <= set(
+                JAX_TOOLS)
 
 
 def test_wrappers_take_plain_versions_only_on_cpu():

@@ -338,13 +338,11 @@ def compare_shapes(args):
 
 
 STEP = """
-import importlib.util, sys
+import sys
 sys.path.insert(0, {tree!r})
-spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
-cs = importlib.util.module_from_spec(spec)
-sys.modules["chip_smoke"] = cs
-spec.loader.exec_module(cs)
 import torch, gantts_tpu_torch
+sys.path.insert(0, {root!r})
+import chip_smoke as cs  # this tree's script; the package stays the other's
 print("[4h] gantts_tpu_torch from", gantts_tpu_torch.__file__, flush=True)
 dev, card = torch.device("cuda", 0), cs.card_line()
 gen = torch.Generator(device=dev)
@@ -362,7 +360,7 @@ def step_with_tree(tree):
     launches and the trace), both from this tree's script, run on another
     checkout's gantts_tpu_torch in a process of its own."""
     subprocess.run([sys.executable, "-c", STEP.format(
-        tree=abspath(tree), smoke=join(ROOT, "chip_smoke.py"))], check=True)
+        tree=abspath(tree), root=ROOT)], check=True)
 
 
 if __name__ == "__main__":

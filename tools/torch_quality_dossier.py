@@ -64,6 +64,47 @@ PAIRS = {"vc": ("vc_in2out_baseline", "vc_in2out_gan"),
          "tts": ("tts_acoustic_baseline", "tts_acoustic_gan")}
 
 
+# the heading of tools/torch_tts_gan_sweep.py's section of --out-md, which
+# a new rendering keeps
+SWEEP_SECTION = "## TTS GAN knob sweep"
+
+
+def split_section(text, heading):
+    """(before, section, after) of a markdown text: ``section`` runs from
+    the line ``heading`` to the next heading of its level, or the end ('',
+    with the whole text before it, where the text has no such line)."""
+    before, found, rest = ("\n" + text).partition("\n" + heading)
+    if not found:
+        return text, "", ""
+    end = rest.find("\n" + heading.split(" ", 1)[0] + " ")
+    end = len(rest) if end < 0 else end + 1
+    return before[1:], heading + rest[:end], rest[end:]
+
+
+def read_section(path, heading):
+    """The section under ``heading`` of the markdown file at ``path`` (''
+    where the file or the section is missing)."""
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return split_section(f.read(), heading)[1]
+
+
+def replace_section(path, heading, text):
+    """Put ``text`` (a section starting with ``heading``) into the markdown
+    file at ``path`` in place of its section under ``heading``, or at its
+    end; everything else in the file stays."""
+    old = ""
+    if os.path.exists(path):
+        with open(path) as f:
+            old = f.read()
+    before, _, after = split_section(old, heading)
+    before = before.strip("\n")
+    with open(path, "w") as f:
+        f.write((before + "\n\n" if before else "")
+                + (text.rstrip("\n") + "\n\n" + after if after else text))
+
+
 def read_series(jsonl_path, tag):
     with open(jsonl_path) as f:
         return [(r["step"], r["value"]) for r in map(json.loads, f)
@@ -335,6 +376,9 @@ def render_md(results, seeds_doc, path):
             md.append(f"| {half} | {package} | {len(gvs)} | {med:.4f} | "
                       f"{min(gvs)} - {max(gvs)} |")
     md.append("")
+    sweep = read_section(path, SWEEP_SECTION)  # the sweep tool's section
+    if sweep:
+        md += [sweep.rstrip("\n"), ""]
     with open(path, "w") as f:
         f.write("\n".join(md))
 
