@@ -25,6 +25,8 @@ from os.path import join, splitext
 
 import numpy as np
 
+from gantts_tpu_torch import tracing
+
 TEST_SIZE = 0.112      # reference train.py:64
 RANDOM_STATE = 1234    # reference train.py:65
 
@@ -171,21 +173,24 @@ class BatchIterator:
                 self._cache[j] = item
         return item
 
-    def _assemble(self, idx):
-        B = self.batch_size
-        items = [self._item(j) for j in idx]
-        lengths = np.array([len(x) for x, _ in items], dtype=np.int32)
-        T = round_up(int(lengths.max()), self.bucket_multiple)
-        Dx = items[0][0].shape[-1]
-        Dy = items[0][1].shape[-1]
-        x = np.zeros((B, T, Dx), dtype=np.float32)
-        y = np.zeros((B, T, Dy), dtype=np.float32)
-        for k, (xi, yi) in enumerate(items):
-            x[k, : len(xi)] = xi
-            y[k, : len(yi)] = yi
-        full_lengths = np.zeros(B, dtype=np.int32)
-        full_lengths[: len(lengths)] = lengths
-        return x, y, full_lengths
+    def _assemble(self, idx, phase=None):
+        """One batch of the items ``idx``; ``phase``: the loop's recording
+        phase, as the iterator read it (``tracing.span``)."""
+        with tracing.span("loader.assemble", phase):
+            B = self.batch_size
+            items = [self._item(j) for j in idx]
+            lengths = np.array([len(x) for x, _ in items], dtype=np.int32)
+            T = round_up(int(lengths.max()), self.bucket_multiple)
+            Dx = items[0][0].shape[-1]
+            Dy = items[0][1].shape[-1]
+            x = np.zeros((B, T, Dx), dtype=np.float32)
+            y = np.zeros((B, T, Dy), dtype=np.float32)
+            for k, (xi, yi) in enumerate(items):
+                x[k, : len(xi)] = xi
+                y[k, : len(yi)] = yi
+            full_lengths = np.zeros(B, dtype=np.int32)
+            full_lengths[: len(lengths)] = lengths
+            return x, y, full_lengths
 
     def __iter__(self):
         n = len(self.dataset)
@@ -196,19 +201,38 @@ class BatchIterator:
         self.epoch += 1
         B = self.batch_size
         batches = [order[i: i + B] for i in range(0, n, B)]
+        # whether this epoch records (tracing.py), asked on the loop's
+        # thread and handed to the workers, which cannot ask
+        phase = tracing.RECORD.phase
         if self.num_workers <= 0:
             for idx in batches:
-                yield self._assemble(idx)
+                tracing.count("loader.fetch", False)
+                with tracing.span("loader.wait"):
+                    out = self._assemble(idx, phase)
+                yield out
             return
         from concurrent.futures import ThreadPoolExecutor
 
         depth = max(2, 2 * self.num_workers)  # bounded prefetch window
         with ThreadPoolExecutor(self.num_workers) as ex:
-            pending = [ex.submit(self._assemble, idx)
+            pending = [ex.submit(self._assemble, idx, phase)
                        for idx in batches[:depth]]
             for idx in batches[depth:]:
-                out = pending.pop(0).result()
-                pending.append(ex.submit(self._assemble, idx))
+                out = _fetch(pending.pop(0), phase)
+                pending.append(ex.submit(self._assemble, idx, phase))
                 yield out
             for fut in pending:
-                yield fut.result()
+                yield _fetch(fut, phase)
+
+
+def _fetch(fut, phase):
+    """A batch from the worker's future, counted (``loader.fetch``: whether
+    it was ready) and its wait spanned where it was not, while ``phase``
+    records."""
+    if phase is not None:
+        ready = fut.done()
+        tracing.count("loader.fetch", ready)
+        if not ready:
+            with tracing.span("loader.wait"):
+                return fut.result()
+    return fut.result()

@@ -11,7 +11,8 @@ place as the eager steps update them.  A replay copies the caller's stacked
 batch into the static inputs (``non_blocking`` from pinned host staging, or
 on the device), replays, and returns a copy of the K steps' scalars, so
 that the next replay (of this graph or of another one sharing its memory)
-cannot overwrite what the caller holds.
+cannot overwrite what the caller holds.  While the loop's phase records
+(``tracing.py``), a replay is the span ``graphs.replay``.
 
 What makes the replay equal to K eager steps, bit for bit:
 
@@ -56,6 +57,7 @@ import warnings
 
 import torch
 
+from gantts_tpu_torch import tracing
 from gantts_tpu_torch.kernels import launch_counts
 
 # The kernel function that each counted wrapper launches once a call, by
@@ -185,11 +187,12 @@ class StepGraph:
                 R is not None and R.data_ptr() != self.R.data_ptr()):
             raise ValueError("a step graph replays only with the MLPG matrix "
                              "it was captured with")
-        self._fill(xs, ys, lengths, zs, adv_w)
-        self.graph.replay()
-        for name, n in self.launches.items():
-            launch_counts[name] += n
-        return {key: v.clone() for key, v in self.outs.items()}
+        with tracing.span("graphs.replay"):
+            self._fill(xs, ys, lengths, zs, adv_w)
+            self.graph.replay()
+            for name, n in self.launches.items():
+                launch_counts[name] += n
+            return {key: v.clone() for key, v in self.outs.items()}
 
 
 class StepGraphs:

@@ -24,12 +24,16 @@ the dropout generator and the noise drawn as the unfused run draws them
 this phase kind runs alone and eagerly: it is the warm-up a capture needs,
 and a real step.
 
-Each dispatch, one ``trainer.step`` or one ``trainer.multi_step`` of K
-steps with its host staging, runs inside a host range named
-``gan_dispatch:K`` (``dispatch_span``, torch.profiler's
-``record_function``), so that a trace says how many steps it holds
-(tools/torch_trace_report.py); the range costs a few microseconds a
-dispatch when no profiler runs, and changes no launch and no value.
+Tracing (``gantts_tpu_torch/tracing.py``): each phase runs inside
+``tracing.phase``, which asks once whether a torch profiler records on the
+loop's thread.  While one does, the host work is spanned: each dispatch,
+one ``trainer.step`` or one ``trainer.multi_step`` of K steps with its host
+staging, as ``gan_dispatch:K`` (``dispatch_span``), so that a trace says
+how many steps it holds (tools/torch_trace_report.py); inside it the
+staging (``loop.stage``) and the eager step's launch (``step.launch``); the
+pulling of each dispatch group out of the loader (``loop.gather``); the
+phase's end (``loop.phase_end``).  While none does, a span is one branch;
+tracing changes no launch and no value.
 
 Two debugging aids, off by default (the CLI's ``--profile-dir`` and
 ``--debug-nans``):
@@ -38,7 +42,8 @@ Two debugging aids, off by default (the CLI's ``--profile-dir`` and
     first pays for building and loading the kernels and capturing the
     graphs), train and test phases, is traced by torch.profiler (CPU and,
     on the card, CUDA activity) into one Chrome trace
-    ``profile_dir/trace_epoch{N}.json``;
+    ``profile_dir/trace_epoch{N}.json``, with the loader workers' spans
+    added on their own threads;
   * ``debug_nans``: after each step, one read of the optimizers' gradient
     norms and the step's losses raises ``FloatingPointError`` on the first
     that is not finite, naming the epoch, phase, batch and quantity.  It
@@ -60,12 +65,14 @@ line, and writes the checkpoints.
 
 from __future__ import annotations
 
+import json
 import os
 import time
 
 import numpy as np
 import torch
 
+from gantts_tpu_torch import tracing
 from gantts_tpu_torch.core.windows import unit_variance_mlpg_matrix
 from gantts_tpu_torch.train.checkpoint import save_checkpoint
 from gantts_tpu_torch.train.optim import exp_decayed_lr, set_learning_rate
@@ -167,9 +174,20 @@ class _Stager:
 
 
 def dispatch_span(K):
-    """The host range of one dispatch of K steps, for the profiler's
-    trace."""
-    return torch.profiler.record_function(f"{DISPATCH_SPAN}:{K}")
+    """The span of one dispatch of K steps (``tracing.span``)."""
+    return tracing.span(f"{DISPATCH_SPAN}:{K}")
+
+
+def gathered(groups):
+    """``groups``, each pulled out inside a ``loop.gather`` span: the
+    loader's fetches and the grouping up to the group's hand-over."""
+    groups = iter(groups)
+    while True:
+        with tracing.span("loop.gather"):
+            group = next(groups, None)
+        if group is None:
+            return
+        yield group
 
 
 def run_dispatch(trainer, gstate, dstate, group, stage, R, adv_w, generator,
@@ -184,19 +202,23 @@ def run_dispatch(trainer, gstate, dstate, group, stage, R, adv_w, generator,
         xs, ys, ls, zs = ([b[j] for b in group] for j in range(4))
         noise = trainer.cfg.add_noise
         if len(group) == 1:
-            gstate, dstate, out = trainer.step(
-                gstate, dstate, stage.put(xs)[0], stage.put(ys)[0],
-                stage.put(ls)[0], R, adv_w, generator=generator, train=train,
-                z=stage.put(zs)[0] if noise else None)
+            with tracing.span("loop.stage"):
+                x, y, lengths = [stage.put(a)[0] for a in (xs, ys, ls)]
+                z = stage.put(zs)[0] if noise else None
+            with tracing.span("step.launch"):
+                gstate, dstate, out = trainer.step(
+                    gstate, dstate, x, y, lengths, R, adv_w,
+                    generator=generator, train=train, z=z)
             if check is not None:
                 check(out)
             return gstate, dstate, {k: v.reshape(1) for k, v in out.items()}
         # the stacked batch stays on the host: a graph copies it into its
         # static inputs without blocking
-        return trainer.multi_step(
-            gstate, dstate, stage.host(xs), stage.host(ys), stage.host(ls), R,
-            adv_w, generator=generator, train=train,
-            zs=stage.host(zs) if noise else None)
+        with tracing.span("loop.stage"):
+            x, y, lengths = [stage.host(a) for a in (xs, ys, ls)]
+            z = stage.host(zs) if noise else None
+        return trainer.multi_step(gstate, dstate, x, y, lengths, R, adv_w,
+                                  generator=generator, train=train, zs=z)
 
 
 def _start_profile(device):
@@ -211,10 +233,18 @@ def _start_profile(device):
 
 
 def _stop_profile(prof, profile_dir, epoch):
+    """Stops the profile and writes its Chrome trace, with the loader
+    workers' spans of the epoch added on the trace's clock (the profiler
+    traces the loop's thread alone)."""
     prof.stop()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, f"trace_epoch{epoch}.json")
     prof.export_chrome_trace(path)
+    with open(path) as f:
+        data = json.load(f)
+    if tracing.export_worker_spans(data):
+        with open(path, "w") as f:
+            json.dump(data, f)
     print(f"Profile of epoch {epoch} written to {path}")
     return path
 
@@ -266,99 +296,105 @@ def train_loop(trainer, gstate, dstate, dataset_loaders, hp, w_d=0.0,
                 and epoch == global_epoch + 2 else None)
 
         for phase in ["train", "test"]:
-            train = phase == "train"
-            N = len(dataset_loaders[phase])
-            phase_t0 = time.perf_counter()
-            adv_w = adv_weight(w_d, E_loss_mge, E_loss_adv) \
-                if update_g else 0.0
-            # constant within the phase: on the device once
-            adv_w_dev = torch.full((), adv_w, dtype=torch.float32,
-                                   device=device)
-            norms = [(name, opt) for name, opt, on in (
-                ("discriminator", dstate.optimizer, cfg.update_d),
-                ("generator", gstate.optimizer, cfg.update_g)) if on
-                and train]
-            acc = {}
-            count = fused = 0
+            with tracing.phase(phase):
+                train = phase == "train"
+                N = len(dataset_loaders[phase])
+                phase_t0 = time.perf_counter()
+                adv_w = adv_weight(w_d, E_loss_mge, E_loss_adv) \
+                    if update_g else 0.0
+                # constant within the phase: on the device once
+                adv_w_dev = torch.full((), adv_w, dtype=torch.float32,
+                                       device=device)
+                norms = [(name, opt) for name, opt, on in (
+                    ("discriminator", dstate.optimizer, cfg.update_d),
+                    ("generator", gstate.optimizer, cfg.update_g)) if on
+                    and train]
+                acc = {}
+                count = fused = 0
 
-            def with_noise(batch):
-                x = batch[0]
-                z = (noise_rs.rand(x.shape[0], x.shape[1],
-                                   hp.generator_noise_dim)
-                     .astype(np.float32) if cfg.add_noise else None)
-                return batch + (z,)
+                def with_noise(batch):
+                    x = batch[0]
+                    z = (noise_rs.rand(x.shape[0], x.shape[1],
+                                       hp.generator_noise_dim)
+                         .astype(np.float32) if cfg.add_noise else None)
+                    return batch + (z,)
 
-            batches = (with_noise(b) for b in dataset_loaders[phase])
-            for group in dispatch_groups(
-                    batches, lambda b: (phase, b[0].shape, b[1].shape), K,
-                    warm):
-                R = r_cache.get(group[0][0].shape[1]) \
-                    if r_cache is not None else None
-                where = f"epoch {epoch}, {phase} phase, batch {count}"
-                check = (lambda out, where=where: _require_finite_losses(
-                    out, where, [(name, opt.grad_norm)
-                                 for name, opt in norms])) \
-                    if debug_nans else None
-                gstate, dstate, out = run_dispatch(
-                    trainer, gstate, dstate, group, stage, R, adv_w_dev, gen,
-                    train, check)
-                if len(group) > 1:
-                    fused += len(group)
-                for k, v in out.items():
-                    acc.setdefault(k, []).append(v)
-                count += len(group)
+                batches = (with_noise(b) for b in dataset_loaders[phase])
+                for group in gathered(dispatch_groups(
+                        batches, lambda b: (phase, b[0].shape, b[1].shape),
+                        K, warm)):
+                    R = r_cache.get(group[0][0].shape[1]) \
+                        if r_cache is not None else None
+                    where = f"epoch {epoch}, {phase} phase, batch {count}"
+                    check = (lambda out, where=where: _require_finite_losses(
+                        out, where, [(name, opt.grad_norm)
+                                     for name, opt in norms])) \
+                        if debug_nans else None
+                    gstate, dstate, out = run_dispatch(
+                        trainer, gstate, dstate, group, stage, R, adv_w_dev,
+                        gen, train, check)
+                    if len(group) > 1:
+                        fused += len(group)
+                    for k, v in out.items():
+                        acc.setdefault(k, []).append(v)
+                    count += len(group)
 
-            sums = _phase_sums(acc)  # the phase's one host sync
-            phase_dt = time.perf_counter() - phase_t0
-            if K > 1:
-                print(f"epoch {epoch}, {phase} phase: {count} steps, "
-                      f"{fused} of them in {fused // K} dispatches of {K}")
-            total_num_frames = sums.pop("num_frames", 1.0)
+                with tracing.span("loop.phase_end"):
+                    sums = _phase_sums(acc)  # the phase's one host sync
+                    phase_dt = time.perf_counter() - phase_t0
+                    if K > 1:
+                        print(f"epoch {epoch}, {phase} phase: {count} "
+                              f"steps, {fused} of them in {fused // K} "
+                              f"dispatches of {K}")
+                    total_num_frames = sums.pop("num_frames", 1.0)
 
-            log(f"{phase} frames_per_sec", total_num_frames / phase_dt, epoch)
-            log(f"{phase} epoch_seconds", phase_dt, epoch)
+                    log(f"{phase} frames_per_sec",
+                        total_num_frames / phase_dt, epoch)
+                    log(f"{phase} epoch_seconds", phase_dt, epoch)
 
-            # Update expectations (reference train.py:601-607); as in the
-            # reference, E_loss_mge includes the MSE term when mse_w != 0.
-            if update_d and update_g and phase == "train":
-                E_loss_mge = (mse_w * sums.get("mse", 0.0)
-                              + mge_w * sums.get("mge", 0.0)) / N
-                E_loss_adv = sums.get("loss_adv", 0.0) / N
-                log("E(mge)", E_loss_mge, epoch)
-                log("E(adv)", E_loss_adv, epoch)
-                log("MGE/ADV loss weight",
-                    E_loss_mge / max(E_loss_adv, 1e-30), epoch)
+                    # Update expectations (reference train.py:601-607); as
+                    # in the reference, E_loss_mge includes the MSE term
+                    # when mse_w != 0.
+                    if update_d and update_g and phase == "train":
+                        E_loss_mge = (mse_w * sums.get("mse", 0.0)
+                                      + mge_w * sums.get("mge", 0.0)) / N
+                        E_loss_adv = sums.get("loss_adv", 0.0) / N
+                        log("E(mge)", E_loss_mge, epoch)
+                        log("E(adv)", E_loss_adv, epoch)
+                        log("MGE/ADV loss weight",
+                            E_loss_mge / max(E_loss_adv, 1e-30), epoch)
 
-            # Loss series (train.py:609-620)
-            for ty, enabled in [("mse", update_g),
-                                ("mge", update_g),
-                                ("discriminator", cfg.update_d),
-                                ("loss_real_d", cfg.update_d),
-                                ("loss_fake_d", cfg.update_d),
-                                ("loss_adv", update_g and cfg.update_d),
-                                ("generator", update_g)]:
-                if enabled and ty in sums:
-                    log(f"{phase} {ty} loss", sums[ty] / N, epoch)
+                    # Loss series (train.py:609-620)
+                    for ty, enabled in [
+                            ("mse", update_g), ("mge", update_g),
+                            ("discriminator", cfg.update_d),
+                            ("loss_real_d", cfg.update_d),
+                            ("loss_fake_d", cfg.update_d),
+                            ("loss_adv", update_g and cfg.update_d),
+                            ("generator", update_g)]:
+                        if enabled and ty in sums:
+                            log(f"{phase} {ty} loss", sums[ty] / N, epoch)
 
-            # Distortion metrics (train.py:622-625)
-            for k in ("mcd", "bap_mcd", "f0_rmse", "vuv_err", "dur_rmse"):
-                if k in sums:
-                    log(f"{phase} {k} metric", sums[k] / N, epoch)
+                    # Distortion metrics (train.py:622-625)
+                    for k in ("mcd", "bap_mcd", "f0_rmse", "vuv_err",
+                              "dur_rmse"):
+                        if k in sums:
+                            log(f"{phase} {k} metric", sums[k] / N, epoch)
 
-            # D accuracy (train.py:627-632)
-            if cfg.update_d:
-                log(f"Real {phase} acc",
-                    sums.get("real_correct_count", 0.0) / total_num_frames,
-                    epoch)
-                log(f"Fake {phase} acc",
-                    sums.get("fake_correct_count", 0.0) / total_num_frames,
-                    epoch)
+                    # D accuracy (train.py:627-632)
+                    if cfg.update_d:
+                        log(f"Real {phase} acc",
+                            sums.get("real_correct_count", 0.0)
+                            / total_num_frames, epoch)
+                        log(f"Fake {phase} acc",
+                            sums.get("fake_correct_count", 0.0)
+                            / total_num_frames, epoch)
 
-            # Spoofing rate (train.py:634-637)
-            if cfg.has_ref:
-                log(f"{phase} spoofing rate",
-                    sums.get("regard_fake_as_natural", 0.0)
-                    / total_num_frames, epoch)
+                    # Spoofing rate (train.py:634-637)
+                    if cfg.has_ref:
+                        log(f"{phase} spoofing rate",
+                            sums.get("regard_fake_as_natural", 0.0)
+                            / total_num_frames, epoch)
 
         if prof is not None:
             traced = _stop_profile(prof, profile_dir, epoch)

@@ -17,6 +17,8 @@ float32 and 1e-2 in bfloat16 (one bf16 rounding of an output); the f32
 bias gradient under 1e-4.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1271,6 +1273,57 @@ def test_graph_replay_is_eager(cuda, case):
             for k, v in st.items():
                 assert torch.equal(ob["state"][i][k], v), (i, k)
     assert torch.equal(gen1.get_state(), gen2.get_state())
+
+
+def test_graph_replay_traced(cuda, tmp_path):
+    """A replay inside a profiled phase of the loop is the span
+    ``graphs.replay``: in the record on the loop's thread, and a host range
+    of the trace that pairs with it (tracing.py)."""
+    from gantts_tpu_torch import tracing
+    from gantts_tpu_torch.core.windows import unit_variance_mlpg_matrix
+    from gantts_tpu_torch.train import GanTrainer, StepConfig
+    from gantts_tpu_torch.train.setup import init_models_and_states
+    from torch.profiler import ProfilerActivity, profile
+
+    hp, _ = GRAPH_CASES["bidirectional SRU"]()
+    rs = np.random.RandomState(5)
+    xs = torch.tensor(rs.rand(GRAPH_K, GRAPH_B, GRAPH_T, 30),
+                      dtype=torch.float32, device=cuda)
+    ys = torch.tensor(rs.randn(GRAPH_K, GRAPH_B, GRAPH_T, 67),
+                      dtype=torch.float32, device=cuda)
+    ls = torch.full((GRAPH_K, GRAPH_B), GRAPH_T, dtype=torch.int32,
+                    device=cuda)
+    R = torch.tensor(unit_variance_mlpg_matrix(hp.windows, GRAPH_T),
+                     device=cuda)
+    adv_w = torch.tensor(0.8, device=cuda)
+    _, _, _, _, gstate, dstate = init_models_and_states(hp, seed=0,
+                                                        device=cuda)
+    trainer = GanTrainer(StepConfig.from_hparams(
+        hp, 1.0, 0.0, 1.0, True, True), np.zeros(67, np.float32),
+        np.ones(67, np.float32), cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    trainer.step(gstate, dstate, xs[0], ys[0], ls[0], R, adv_w, gen)
+    trainer.multi_step(gstate, dstate, xs, ys, ls, R, adv_w, gen)  # capture
+    record = tracing.Record()
+    saved, tracing.RECORD = tracing.RECORD, record
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with tracing.phase("train"):
+                trainer.multi_step(gstate, dstate, xs, ys, ls, R, adv_w, gen)
+            torch.cuda.synchronize()
+    finally:
+        tracing.RECORD = saved
+    replays = tracing.spans("graphs.replay", "train", record)
+    assert len(replays) == 1 and replays[0].tid == record.loop_tid
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert [e["name"] for e in events if e.get("cat") == "user_annotation"
+            and e["name"] == "graphs.replay"] == ["graphs.replay"]
+    assert tracing.clock_offset(events, record)[2] == 1
 
 
 def test_graph_replay_refuses_other_states(cuda):

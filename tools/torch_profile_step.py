@@ -389,13 +389,16 @@ def profile_rows(comps, device):
 
 def write_trace(comps, device, trace_dir):
     """A Chrome trace of TRACE_DIR_STEPS more eager full steps in
-    ``trace_dir``."""
+    ``trace_dir``, each inside its dispatch span (``gan_dispatch:1``: the
+    trace is read as one phase of the training loop)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from gantts_tpu_torch import tracing
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, tracing.phase("train"):
         for _ in range(TRACE_DIR_STEPS):
             comps.full()
         _synchronize(device)
