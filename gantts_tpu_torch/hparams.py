@@ -162,8 +162,10 @@ _TPU_ADDITIONS = dict(
 )
 
 # Host loader.  num_workers > 0 enables the prefetching thread pool in
-# data.BatchIterator; cache_size caps the normalized-item memo; pin_memory is
-# an accepted no-op so reference --hparams strings still parse.
+# data.BatchIterator; cache_size caps the normalized-item memo and, over
+# batch_size, the batches that pool assembles ahead (at least 2 a worker),
+# across the end of an epoch; pin_memory is an accepted no-op so reference
+# --hparams strings still parse.
 _LOADER_DEFAULTS = dict(num_workers=1, cache_size=1200, pin_memory=False)
 
 

@@ -19,15 +19,18 @@ arithmetic, so that this module cannot move them.
 
 A profiler started on one thread does not trace ranges opened on another
 (torch.profiler without ``profile_all_threads``), so a loader's worker
-spans are in the record alone.  The loop's thread's spans are in both:
-``clock_offset`` pairs them and gives the trace's clock minus the record's,
-so that every span of the record can be placed on the trace's timeline
-(``trace_us``).
+spans (``worker_span``) are in the record alone.  A worker may assemble a
+batch ahead, while no phase records or across a phase's end, so its span
+is kept only if one phase records from its start to its end.  The loop's
+thread's spans are in both: ``clock_offset`` pairs them and gives the
+trace's clock minus the record's, so that every span of the record can be
+placed on the trace's timeline (``trace_us``).
 
 The spans (the benchmark's readers in ``perfbench/metrics/``):
 
   ``loader.assemble``  one batch assembled (data.BatchIterator), on the
-                       worker's thread or, without workers, the loop's
+                       worker's thread (inside one recording phase) or,
+                       without workers, the loop's
   ``loader.wait``      the loop's thread waiting for a batch not yet
                        assembled
   ``loop.gather``      one dispatch group pulled out of ``dispatch_groups``
@@ -39,8 +42,13 @@ The spans (the benchmark's readers in ``perfbench/metrics/``):
   ``gan_dispatch:K``   one dispatch of K steps (tools/torch_trace_report.py,
                        the benchmark's ``graphs.fused_share``)
 
-and the counter ``loader.fetch`` (value: whether the fetched batch was
-already assembled).
+and the counters
+
+  ``loader.fetch``     each batch the loop's thread takes from a loader;
+                       value: whether it was already assembled
+  ``loader.ahead``     each ``iter()`` of a loader on the loop's thread;
+                       value: how many of the epoch's batches its worker
+                       had already assembled (0 without workers)
 """
 
 from __future__ import annotations
@@ -75,6 +83,7 @@ class Record:
     def __init__(self):
         self.spans, self.counts = [], []
         self.phase = None  # the loop's phase while it records, else None
+        self.phases = 0  # recording phases begun: tells two phases apart
         self.loop_tid = None
         self.last_recorded = False
         self._lock = threading.Lock()
@@ -104,9 +113,13 @@ class Record:
         s.end = time.perf_counter_ns()
         self._stack().pop()
 
+    def add(self, s):
+        """Appends the closed span ``s`` (of no enclosing span)."""
+        with self._lock:
+            self.spans.append(s)
+
 
 RECORD = Record()
-_CURRENT = object()
 
 
 @contextlib.contextmanager
@@ -120,6 +133,7 @@ def phase(name):
         if not RECORD.last_recorded:
             RECORD.clear()
         RECORD.loop_tid = threading.get_native_id()
+        RECORD.phases += 1
     RECORD.phase = name if on else None
     try:
         yield on
@@ -143,16 +157,37 @@ def _recorded(name, phase_name):
             RECORD.close(s)
 
 
-def span(name, phase=_CURRENT):
-    """A context of the host work ``name``, recorded while its phase
-    records.  ``phase``: by default the loop's current phase
-    (``RECORD.phase``); a thread other than the loop's passes what the
-    loop's thread read, None when it does not record."""
-    if phase is _CURRENT:
-        phase = RECORD.phase
+def span(name):
+    """A context of the loop's thread's host work ``name``, recorded while
+    the loop's phase records."""
+    phase = RECORD.phase
     if phase is None:
         return contextlib.nullcontext()
     return _recorded(name, phase)
+
+
+@contextlib.contextmanager
+def _kept(name, phase_name, serial):
+    start = time.perf_counter_ns()
+    try:
+        yield
+    finally:
+        end = time.perf_counter_ns()
+        if RECORD.phase == phase_name and RECORD.phases == serial:
+            RECORD.add(Span(name, phase_name, threading.get_native_id(),
+                            start, end))
+
+
+def worker_span(name):
+    """A context of the host work ``name`` on a thread other than the
+    loop's, recorded if the loop's phase records as it begins and the same
+    phase still records as it ends, so that no such span reaches outside
+    the profiled epoch.  It opens no ``record_function`` range, which the
+    profiler would not trace (``export_worker_spans`` adds the span)."""
+    phase_name = RECORD.phase
+    if phase_name is None:
+        return contextlib.nullcontext()
+    return _kept(name, phase_name, RECORD.phases)
 
 
 def count(name, value):

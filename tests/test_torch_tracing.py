@@ -4,8 +4,10 @@
   activity), the profiler started by the loop's ``--profile-dir`` or by
   its writer as the benchmark's harness starts it, with and without a
   loader worker, one and two steps a dispatch: the record holds that
-  epoch's spans alone, named as ``tracing.py`` names them, the loader's
-  assembly on the worker's thread, the loop's thread's spans paired one to
+  epoch's spans alone, each inside a phase of its name, named as
+  ``tracing.py`` names them, the loader's assembly on the worker's thread
+  and its counts (``loader.ahead``, ``loader.fetch``) as the loader's
+  window gives them, the loop's thread's spans paired one to
   one with the trace's host ranges and placed inside the trace's extent by
   an offset whose spread is under 1 ms; the ``--profile-dir`` file holds
   the worker's spans; losses and parameters equal the unprofiled run's
@@ -20,10 +22,12 @@
   without the tracing module (a program that keeps no record).
 """
 
+import contextlib
 import json
 import os
 import statistics
 import sys
+import threading
 import time
 from os.path import dirname
 from types import SimpleNamespace
@@ -63,17 +67,35 @@ def _corpus():
     return X, Y, L
 
 
-class Slow:
-    """A dataset whose items take 2 ms each: a phase's first fetch finds
-    its batch not yet assembled."""
+def _wait_for(cond, timeout=60.0):
+    t = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < t, "timed out"
+        time.sleep(0.001)
 
-    def __init__(self, dataset):
-        self.dataset = dataset
+
+class Slow:
+    """A dataset whose items take 2 ms each.  The items of epoch 3 on
+    (calls past 2 x its length: no item cache) wait for ``released``, so
+    that the look-ahead that the loader's worker begins in the profiled
+    epoch 2 outlasts it.  While a phase records, call ``hold`` waits until
+    the loop's thread waits for a batch (an open ``loader.wait``): that
+    fetch finds its batch not yet assembled."""
+
+    def __init__(self, dataset, released, hold=None):
+        self.dataset, self.released, self.hold = dataset, released, hold
+        self.calls = 0
 
     def __len__(self):
         return len(self.dataset)
 
     def __getitem__(self, j):
+        self.calls += 1
+        if self.calls > 2 * len(self.dataset):
+            assert self.released.wait(60)
+        elif self.calls == self.hold and tracing.RECORD.phase is not None:
+            _wait_for(lambda: any(s.name == "loader.wait" and s.end is None
+                                  for s in tracing.RECORD.spans))
         time.sleep(0.002)
         return self.dataset[j]
 
@@ -81,22 +103,29 @@ class Slow:
 class Writer:
     """The loop's writer; with ``profile``, starts torch.profiler at the
     end of epoch 1 and stops it at the end of epoch 2 (as the harness's
-    Clock does) and exports the trace to ``path``."""
+    Clock does) and exports the trace to ``path``.  At the end of epoch 1
+    it waits until the loaders' batches assembled ahead are done (the
+    loader's own futures), and at the end of epoch 2 releases ``Slow``."""
 
-    def __init__(self, path=None):
+    def __init__(self, loaders, released, path=None):
         self.rows, self.epoch, self.path, self.prof = [], 0, path, None
+        self.loaders, self.released = loaders, released
 
     def log_value(self, name, value, epoch):
         self.rows.append((name, float(value), int(epoch)))
         self.epoch = epoch
 
     def flush(self):
-        if self.path is None:
-            return
-        if self.epoch == 2:
+        if self.epoch == 1:
+            for loader in self.loaders.values():
+                for fut in list(loader._pending.values()):
+                    fut.result(timeout=60)
+        if self.path is not None and self.epoch == 2:
             self.prof.stop()
             self.prof.export_chrome_trace(self.path)
-        elif self.epoch == 1:
+        if self.epoch == 2:
+            self.released.set()
+        if self.path is not None and self.epoch == 1:
             self.prof = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU])
             self.prof.start()
@@ -122,8 +151,12 @@ def _run(tmp_path, K, workers, how=None):
     data = tmp_path / f"data_{how}_{K}_{workers}"
     data.mkdir()
     loaders, mean, std = setup.prepare_vc(*_corpus(), hp, str(data))
-    for loader in loaders.values():
-        loader.dataset = Slow(loader.dataset)
+    released = threading.Event()
+    # hold: the first item of epoch 2's third training batch, the first
+    # that a worker (W = 2 batches ahead) assembles inside the phase
+    loaders["train"].dataset = Slow(loaders["train"].dataset, released,
+                                    hold=14 + 2 * 4 + 1)
+    loaders["test"].dataset = Slow(loaders["test"].dataset, released)
     _, _, _, _, gstate, dstate = setup.init_models_and_states(
         hp, seed=0, device="cpu")
     trainer = GanTrainer(StepConfig.from_hparams(hp, 1.0, 0.0, 1.0, True,
@@ -131,7 +164,7 @@ def _run(tmp_path, K, workers, how=None):
     prof_dir = str(tmp_path / f"prof_{K}_{workers}")
     path = {"profile_dir": os.path.join(prof_dir, "trace_epoch2.json"),
             "writer": str(tmp_path / f"writer_{K}_{workers}.json")}.get(how)
-    writer = Writer(path if how == "writer" else None)
+    writer = Writer(loaders, released, path if how == "writer" else None)
     loop.train_loop(trainer, gstate, dstate, loaders, hp, w_d=1.0,
                     writer=writer, seed=5, steps_per_dispatch=K,
                     profile_dir=prof_dir if how == "profile_dir" else None)
@@ -171,7 +204,20 @@ def test_no_profiler_no_record(plain):
 @pytest.mark.parametrize("how, K, workers", [
     ("profile_dir", 2, 1), ("writer", 2, 1), ("writer", 1, 0),
     ("profile_dir", 1, 0)])
-def test_profiled_epoch_spans(plain, tmp_path, how, K, workers):
+def test_profiled_epoch_spans(plain, tmp_path, monkeypatch, how, K,
+                              workers):
+    phases = []  # (name, start, end) of each recording phase, ns
+    real = tracing.phase
+
+    @contextlib.contextmanager
+    def timed(name):
+        t0 = time.perf_counter_ns()
+        with real(name) as on:
+            yield on
+        if on:
+            phases.append((name, t0, time.perf_counter_ns()))
+
+    monkeypatch.setattr(tracing, "phase", timed)
     rows, params, path = _run(tmp_path, K, workers, how)
     rec = tracing.RECORD
     with open(path) as f:
@@ -189,18 +235,35 @@ def test_profiled_epoch_spans(plain, tmp_path, how, K, workers):
     dispatches = {f"gan_dispatch:{k}" for k in {1, K}}
     assert names == SPANS | dispatches
     assert {s.phase for s in spans} == {"train", "test"}
+    assert [p[0] for p in phases] == ["train", "test"]
     # epoch 2: 4 train batches (the first shape's warm-up was epoch 1's),
     # 1 test batch; a gather a group and one that finds the loader empty
     train_groups = 4 // K
     assert len(tracing.spans("loop.gather", "train")) == train_groups + 1
     assert len(tracing.spans("loop.gather", "test")) == 2
-    assert len(tracing.spans("loader.assemble")) == 5
-    assert _counts("loader.fetch", "train") != [] and len(
-        _counts("loader.fetch")) == 5
+    # The loader's window, max(2 x workers, cache_size // batch_size), is
+    # 2 batches with the worker: epoch 2 begins with min(2, 4) training
+    # batches and min(2, 1) test batch assembled ahead, in epoch 1; the
+    # worker assembles the other 4 - 2 inside the train phase, and the
+    # next epoch's first batches, begun in this one, end after it (Slow),
+    # so they are not recorded.  Without the worker, all 4 + 1 on the
+    # loop's thread, none ahead.
+    assembled = 4 - 2 if workers else 5
+    assert len(tracing.spans("loader.assemble")) == assembled
+    assert len(tracing.spans("loader.assemble", "train")) == assembled - (
+        0 if workers else 1)
+    assert _counts("loader.ahead", "train") == [2 if workers else 0]
+    assert _counts("loader.ahead", "test") == [1 if workers else 0]
+    assert len(_counts("loader.fetch")) == 5
     assert all(isinstance(v, bool) for v in _counts("loader.fetch"))
+    assert _counts("loader.fetch", "train")[:3] == (
+        [True, True, False] if workers else [False] * 3)
+    assert _counts("loader.fetch", "test") == [bool(workers)]
     assert len(tracing.spans("loop.phase_end")) == 2
     for s in spans:
         assert s.start <= s.end
+        assert any(name == s.phase and a <= s.start <= s.end <= b
+                   for name, a, b in phases), s
         if s.parent is not None:
             p = rec.spans[s.parent]
             assert p.tid == s.tid and p.start <= s.start <= s.end <= p.end
@@ -237,7 +300,7 @@ def test_profiled_epoch_spans(plain, tmp_path, how, K, workers):
     if how == "profile_dir" and workers:
         assert {e["name"] for e in added} == {"loader.assemble"}
         assert {e["tid"] for e in added} == assembles
-        assert len(added) == 5
+        assert len(added) == assembled
     else:
         assert added == []
 

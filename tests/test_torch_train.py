@@ -186,9 +186,10 @@ def test_split_refuses_an_empty_train_set_as_sklearn_does():
 
 
 def test_data_source_and_batches_match_jax(corpus):
-    """The split of a corpus directory, and two epochs of bucketed batches
-    (shuffle order, padding, lengths, normalized values), with and without
-    the prefetching thread pool."""
+    """The split of a corpus directory, and three epochs of bucketed
+    batches (shuffle order, padding, lengths, normalized values), with and
+    without the prefetching thread pool, whose look-ahead crosses each
+    epoch's end."""
     xdir, ydir = join(corpus, "X_acoustic"), join(corpus, "Y_acoustic")
     for kw in (dict(train=True), dict(train=False), dict(test=True),
                dict(train=True, max_files=6)):
@@ -206,14 +207,14 @@ def test_data_source_and_batches_match_jax(corpus):
             hp.windows, hp.stream_sizes, hp.has_dynamic_features)
     from gantts_tpu.data import TTSDataset as JaxTTSDataset
 
-    for workers in (0, 2):
+    for workers in (0, 1, 2):
         ours = data.BatchIterator(data.TTSDataset(*args), 3, True,
                                   bucket_multiple=16, num_workers=workers,
                                   cache_size=4)
         ref = JaxBatchIterator(JaxTTSDataset(*args), 3, True,
                                bucket_multiple=16)
         assert len(ours) == len(ref) == 3
-        for _ in range(2):
+        for _ in range(3):
             batches = list(ours)
             ref_batches = list(ref)
             assert len(batches) == len(ref_batches)
