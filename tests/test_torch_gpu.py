@@ -1440,6 +1440,93 @@ def test_graph_kernel_nodes_are_its_launches(cuda):
         assert kernel_nodes(graph) == {"sru_fwd_scan": calls}
 
 
+def test_bilstm_stack_replay_at_the_cell_width_is_eager(cuda, tmp_path):
+    """The benchmark's tts_lstm generator (LSTMRNN, 425 -> 6 x 512
+    bidirectional, dropout 0.2 -> 187, float32) in the tts_acoustic
+    bundle's step at B=20 x 512: 1 + 16 eager steps against 1 eager step
+    and one 16-step graph replay from the same states and batches, the
+    same bits in every step's scalars, the parameters, the optimizers'
+    state and the dropout generator.  Both ways of every layer take the
+    flag design: the launcher's design at the shape, one launch a layer
+    each way in an eager step (6 forward and 6 backward, two directions
+    each), and the graph's kernel nodes, 96 ``lstm_fwd_flag_kernel`` and
+    96 ``lstm_bwd_flag_kernel``."""
+    from gantts_tpu_torch import hparams
+    from gantts_tpu_torch.core.windows import unit_variance_mlpg_matrix
+    from gantts_tpu_torch.train import GanTrainer, StepConfig
+    from gantts_tpu_torch.train.graphs import _NODE
+    from gantts_tpu_torch.train.setup import init_models_and_states
+
+    Kn, Bn, Tn, Hn = 16, 20, 512, 512
+    hp = hparams.tts_acoustic.copy()
+    hp.generator = "LSTMRNN"
+    hp.generator_params = dict(in_dim=425, out_dim=187, num_hidden=6,
+                               hidden_dim=Hn, bidirectional=True,
+                               dropout=0.2, last_sigmoid=False)
+    hp.discriminator_params = dict(hp.discriminator_params, in_dim=483)
+    for way in (lstm_scan.fwd_design, lstm_scan.bwd_design):
+        assert way(Bn, Hn, torch.float32, 2) == "flag"
+    rs = np.random.RandomState(23)
+    n = Kn + 1
+    xs = torch.tensor(rs.rand(n, Bn, Tn, 425), dtype=torch.float32,
+                      device=cuda)
+    ys = torch.tensor(rs.randn(n, Bn, Tn, 187), dtype=torch.float32,
+                      device=cuda)
+    ls = torch.full((n, Bn), Tn, dtype=torch.int32, device=cuda)
+    R = torch.tensor(unit_variance_mlpg_matrix(hp.windows, Tn), device=cuda)
+    adv_w = torch.tensor(1.0, device=cuda)
+    runs = []
+    for fused in (False, True):
+        _, _, _, _, gstate, dstate = init_models_and_states(
+            hp, seed=0, device=cuda)
+        trainer = GanTrainer(StepConfig.from_hparams(
+            hp, 1.0, 0.0, 1.0, True, True), np.zeros(187, np.float32),
+            np.ones(187, np.float32), cuda)
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(3)
+        before = dict(lstm_scan.launch_counts)
+        outs = [trainer.step(gstate, dstate, xs[0], ys[0], ls[0], R, adv_w,
+                             gen)[2]]
+        for name in ("lstm_fwd_scan", "lstm_bwd_scan"):
+            assert lstm_scan.launch_counts[name] == before[name] + 6, name
+        if fused:
+            got = trainer.multi_step(gstate, dstate, xs[1:], ys[1:], ls[1:],
+                                     R, adv_w, gen)[2]
+            outs += [{k: v[j] for k, v in got.items()} for j in range(Kn)]
+            (sg,) = trainer._graphs.graphs.values()
+            path = str(tmp_path / "graph.dot")
+            sg.graph.debug_dump(path)
+            with open(path) as f:
+                dot = f.read()
+            starts = [m.start() for m in _NODE.finditer(dot)] + [len(dot)]
+            nodes = [dot[a:b] for a, b in zip(starts, starts[1:])]
+            for way in ("fwd", "bwd"):
+                scans = [v for v in nodes if f"lstm_{way}_" in v]
+                assert len(scans) == 6 * Kn, way
+                assert all(f"lstm_{way}_flag_kernel" in v for v in scans)
+        else:
+            for i in range(1, n):
+                outs.append(trainer.step(gstate, dstate, xs[i], ys[i], ls[i],
+                                         R, adv_w, gen)[2])
+        torch.cuda.synchronize()
+        runs.append((gstate, dstate, gen, outs))
+    (g1, d1, gen1, o1), (g2, d2, gen2, o2) = runs
+    assert len(o1) == len(o2) == n
+    for a, b in zip(o1, o2):
+        for k in a:
+            assert torch.equal(a[k], b[k]) or (
+                torch.isnan(a[k]) and torch.isnan(b[k])), k
+    for sa, sb in ((g1, g2), (d1, d2)):
+        for (name, p), q in zip(sa.model.named_parameters(),
+                                sb.model.parameters()):
+            assert torch.equal(p, q), name
+        oa, ob = sa.optimizer.state_dict(), sb.optimizer.state_dict()
+        for i, st in oa["state"].items():
+            for k, v in st.items():
+                assert torch.equal(ob["state"][i][k], v), (i, k)
+    assert torch.equal(gen1.get_state(), gen2.get_state())
+
+
 GRAPH_DESTROYED_INSIDE = """
 import gc, sys
 import torch
