@@ -103,15 +103,37 @@
 // (`lstm_fwd_flag_kernel`, `lstm_bwd_flag_kernel`, below): 16 blocks cannot
 // hold f32 W_hh (4 MB at H=512) and would cap the FMA product at 16 SMs (42
 // MFLOP a step, at least 5.2 us at the H100's published f32 rate), so each
-// direction is spread over H / U blocks (the forward's 128 of U = 4 with one
-// direction, 64 of 8 otherwise), each block's slice of W_hh held in
-// registers for the launch.  Blocks exchange each step through global
-// scratch and per-block step flags (a release store, acquire polls on
-// exactly the flags a block needs) instead of a grid barrier; the forward
-// all-gathers h_{t-1} (40 KB a block at B=20), the backward reduce-scatters
-// partial dh (40 KB a block, where the cooperative backward re-reads all of
-// dgates_t, 160 KB); the cells' inputs are prefetched a step ahead by
-// cp.async and their outputs stored after the flag.
+// direction is spread over H / U blocks of U = 8 units, each block's slice
+// of W_hh held in registers for the launch.  With one direction (B >= 2)
+// the rows are cut into two slices of ceil(B / 2), each with its own 64
+// blocks, flags and scratch, since a row's recurrence never reads another
+// row: 128 blocks of 8 units then do the FMAs a block of the forward's
+// former 128 blocks of 4 units on all rows, and each stages half the bytes
+// a step (the all-gather reads 2.6 MB of L2 a step, not 5.2); the
+// backward's former 64 blocks of 8 on all rows did twice the product a
+// block.  Two directions keep all rows in 64 blocks of 8 a direction (128
+// SMs), one row keeps the forward at 128 blocks of 4.  Blocks exchange each
+// step through global scratch and per-block step flags (a release store,
+// acquire polls on exactly the flags a block needs) instead of a grid
+// barrier; the forward all-gathers h_{t-1} (20 KB a block at B=20 in two
+// slices), the backward reduce-scatters partial dh (20 KB a block, where
+// the cooperative backward re-reads all of dgates_t, 160 KB); the cells'
+// inputs are prefetched a step ahead by cp.async and their outputs stored
+// after the flag.  On an NVIDIA H100 80GB HBM3 at 700 W, at T=512, B=20,
+// H=512, one direction, a step takes 4.0 us forward and 4.6 us backward
+// (4.9 and 5.9 before the slices), against an operations bound of 0.47 us
+// each (PERF.md, the f32 LSTM findings).
+//
+// Values that carry their own step instead of a flag (each h or partial dh
+// stored with a tag, polled directly, no release) were built and timed and
+// are not used: a consumer cannot know when every word of a source has
+// landed without polling each, and on the H100 the stores of one block
+// became visible over about a microsecond, so the polls either re-read the
+// whole exchange (5.2 MB of L2 a round) or waited on one probe word a
+// source and then re-polled the stragglers: 6.5 to 7.2 us a forward step,
+// 7.7 to 8.4 backward (8-byte words doubling the bytes), against the
+// flags' 4.8 and 6.0.  The release's wait is the stores' landing, which a
+// tag only moves to the consumer.
 //
 // Every other shape (f32 that the flag design's plan refuses, such as
 // H=64; H other than 256 or 512 in bf16; B above 24) takes the cooperative
@@ -1234,17 +1256,36 @@ lstm_fwd_cluster_kernel(const __nv_bfloat16* __restrict__ xp,
 // with acquire loads on the flags of their sources (``wait_flags``) and
 // stages them into shared memory with 16-byte cp.async.cg (L2, never a stale
 // L1 line) by all its threads (``stage_f32``).  Flags count steps
-// monotonically over a launch (the wrapper zeroes them), so nothing is
-// reset.  Rows are padded to Bp, a multiple of 4 (16-byte copies, float2
-// reads of the products' operands).
+// monotonically over a launch, so nothing is reset; the wrapper zeroes
+// them before every launch (a memset node in a replayed CUDA graph), since
+// the allocator and a graph hand a launch the flags of an earlier one.  The
+// release orders the block's stores of the step before its flag (the block
+// barrier before it makes every thread's stores the releasing thread's to
+// order), the acquire orders the stage after it, and h and the partial dh
+// are double-buffered by step parity: a block overwrites a buffer at step
+// s + 2 only after every block of its slice released step s + 1, which
+// each did after staging step s's.  A plan may also cut the B rows into
+// RS = 2 slices, each run by its own H / U blocks a direction with its own
+// flags and scratch (the slices never exchange: a row's recurrence needs
+// only its own h and dh), so one direction fills 128 SMs at U = 8.  A
+// block's rows are padded to Bp (B rounded up to 4 in one slice; a slice's
+// ceil(B / 2) rows up to 2: 16-byte copies of U Bp floats, float2 reads of
+// the products' operands).
 // ---------------------------------------------------------------------------
 
 constexpr int kFMaxB = 24;            // rows the flag design takes
-// units a block, in order of preference: [forward, backward].  The forward's
-// product halves with U = 4 (128 blocks); the backward's step is mostly its
-// exchange, cheaper between 64 blocks of 8 (on an NVIDIA H100 80GB HBM3 at
-// 700 W: PERF.md, the f32 LSTM finding).
-constexpr int kFUnits[2][2] = {{4, 8}, {8, 4}};
+// {units a block, row slices}, in order of preference: [forward,
+// backward].  With one direction both take 128 blocks of 8 units in two
+// row slices: against the forward's 128 blocks of 4 units and all rows,
+// the same FMAs a block and half the bytes each block stages a step (the
+// all-gather of h reads 2.6 MB of L2 a step, not 5.2); against the
+// backward's 64 blocks of 8, half the product a block for the same bytes:
+// 4.0 against 4.9 us a forward step, 4.6 against 5.9 backward at B=20,
+// H=512 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, the f32 LSTM
+// findings).  Two directions fill 128 SMs with 64 blocks of 8 a direction
+// on all rows; one row leaves the forward at 128 blocks of 4.
+constexpr int kFPlans[2][3][2] = {{{8, 2}, {4, 1}, {8, 1}},
+                                  {{8, 2}, {8, 1}, {4, 1}}};
 constexpr int kFMinBlocks = 64;       // blocks a direction, at least
 constexpr size_t kFMaxSmem = 232448;  // shared memory a block may use
 constexpr int kFSplits = 32;  // the forward product's K splits (k mod 32)
@@ -1253,8 +1294,17 @@ constexpr int kFMaxH = 512;   // H the flag design takes, at most
 
 __host__ __device__ inline int pad4(int B) { return (B + 3) & ~3; }
 
+// Rows of a slice when B rows are cut into ``rs`` slices (the last may
+// hold fewer), and the rows a block pads them to.
+__host__ __device__ inline int slice_rows(int B, int rs) {
+  return (B + rs - 1) / rs;
+}
+__host__ __device__ inline int padded_rows(int B, int rs) {
+  return rs == 1 ? pad4(B) : (slice_rows(B, rs) + 1) & ~1;
+}
+
 // The kernels are instantiated for each U and each padded row count BP
-// (B rounded up to 4), so that a thread's rows are a constant: the
+// of a block (``padded_rows``), so that a thread's rows are a constant: the
 // products' loops then hold no branch (a guard on a run-time row count cost
 // about 1 us a step on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md).  The
 // forward's threads: U column groups of 4 gate columns x RG row groups of R
@@ -1265,54 +1315,61 @@ __host__ __device__ inline int pad4(int B) { return (B + 3) & ~3; }
 // Either keeps 64 floats of W_hh a thread in registers at H = 512.
 template <int U, int BP>
 struct FlagShape {
-  static_assert(BP % 4 == 0 && BP <= kFMaxB, "rows in fours, at most 24");
+  static_assert(BP % 2 == 0 && BP <= kFMaxB, "rows in twos, at most 24");
+  static_assert(BP % 4 == 0 || U == 8, "a row group's rows are even");
   static constexpr int RG = 8 / U, R = BP / RG, PC = 5 * U;
   static constexpr int KG = 32 * U, KrMax = kFMaxH / KG;
 };
 
 // Forward: h_{t-1} staged [H][Bp], the partial sums [32][Bp][5U], the xp
 // slots [2][256] float4 (W_hh's slice lives in registers).
-inline size_t flag_fwd_smem(int B, int H, int U) {
-  return sizeof(float) * ((size_t)H * pad4(B) +
-                          (size_t)kFSplits * pad4(B) * 5 * U +
+inline size_t flag_fwd_smem(int Bp, int H, int U) {
+  return sizeof(float) * ((size_t)H * Bp + (size_t)kFSplits * Bp * 5 * U +
                           2 * 4 * kThreads);
 }
 
 // Backward: the partial-dh slices of this block's units from every block
 // [H / U][Bp][U], dgates_t [4U][Bp], the cell input slots [2][2][256]
 // float4 (W_hh's slice lives in registers).
-inline size_t flag_bwd_smem(int B, int H, int U) {
-  return sizeof(float) * ((size_t)H * pad4(B) + (size_t)4 * U * pad4(B) +
+inline size_t flag_bwd_smem(int Bp, int H, int U) {
+  return sizeof(float) * ((size_t)H * Bp + (size_t)4 * U * Bp +
                           2 * 2 * 4 * kThreads);
 }
 
-// The plan of the forward (way 0) or the backward (way 1): the first U of
-// kFUnits[way] that divides H into 32 U (the threads' split of the
-// products), whose H / U blocks a direction are at least kFMinBlocks,
-// whose ndir * H / U blocks fit one an SM on ``sms`` SMs, and whose shared
-// memory fits; 0 where none does (the shape goes to the cooperative
-// design).  kernels/lstm_scan.py ``_flag_plan`` is the same rule.
-inline int f32_flag_units(int B, int H, int ndir, int bf16, int sms,
-                          int way) {
-  if (bf16 || B < 1 || B > kFMaxB || H > kFMaxH) return 0;
-  for (int U : kFUnits[way]) {
-    if (H % (32 * U) || H / U < kFMinBlocks || ndir * (H / U) > sms)
+struct FlagPlan {
+  int U, rs;  // units a block (0: no plan), row slices
+};
+
+// The plan of the forward (way 0) or the backward (way 1): the first {U,
+// RS} of kFPlans[way] where U divides H into 32 U (the threads' split of
+// the products), H / U blocks a direction are at least kFMinBlocks, the
+// ndir * RS * H / U blocks fit one an SM on ``sms`` SMs, every slice holds
+// a row, and the shared memory fits; U = 0 where none does (the shape goes
+// to the cooperative design).  kernels/lstm_scan.py ``_flag_plan`` is the
+// same rule.
+inline FlagPlan f32_flag_plan(int B, int H, int ndir, int bf16, int sms,
+                              int way) {
+  if (bf16 || B < 1 || B > kFMaxB || H > kFMaxH) return {0, 1};
+  for (const auto& pl : kFPlans[way]) {
+    const int U = pl[0], rs = pl[1], Bp = padded_rows(B, rs);
+    if (H % (32 * U) || H / U < kFMinBlocks || ndir * rs * (H / U) > sms ||
+        B < rs)
       continue;
-    if ((way ? flag_bwd_smem(B, H, U) : flag_fwd_smem(B, H, U)) <=
+    if ((way ? flag_bwd_smem(Bp, H, U) : flag_fwd_smem(Bp, H, U)) <=
         kFMaxSmem)
-      return U;
+      return {U, rs};
   }
-  return 0;
+  return {0, 1};
 }
 
-// ... on the current device (-1 where it cannot be queried).
-int flag_units(int B, int H, int ndir, int bf16, int way) {
+// ... on the current device (U = -1 where it cannot be queried).
+FlagPlan flag_plan(int B, int H, int ndir, int bf16, int way) {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess)
-    return -1;
-  return f32_flag_units(B, H, ndir, bf16, sms, way);
+    return {-1, 1};
+  return f32_flag_plan(B, H, ndir, bf16, sms, way);
 }
 
 // A load the compiler may not repeat: W_hh's values held in registers for
@@ -1377,9 +1434,11 @@ __device__ __forceinline__ void wait_slots(bool newer) {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Forward, per block and step s > 0:
-//   wait for the H / U flags of step s - 1, stage h_{s-1} (hx, [H][Bp] f32,
-//   40 KB at B=20) into shared memory;
+// Forward, per block (of row slice sl: rows r0 .. r0 + Bl - 1) and step
+// s > 0:
+//   wait for the H / U flags of the slice's step s - 1, stage its h_{s-1}
+//   (hx, [H][Bp] f32: 40 KB at B=20 in one slice, 20 KB in two) into
+//   shared memory;
 //   the product: thread (split, rg, cg) sums h[k][rg r + q] W[k][cg 4 + e]
 //   over k = split, split + 32, ..., W's 4 columns held in registers for
 //   the launch, so that each h value read from shared memory feeds 4 FMAs
@@ -1400,12 +1459,15 @@ lstm_fwd_flag_kernel(const float* __restrict__ xp,
                      const int* __restrict__ lengths, float* __restrict__ y,
                      float* __restrict__ c, float* __restrict__ g4, float* hx,
                      unsigned* flags, int nt, int B, int H, int ndir,
-                     int rev_mask) {
+                     int rev_mask, int rs) {
   using S = FlagShape<U, BP>;
   constexpr int Bp = BP, r = S::R;
   extern __shared__ __align__(16) unsigned char smem[];
   const int nb = H / U, tid = threadIdx.x;
-  const int d = blockIdx.x / nb, blk = blockIdx.x % nb, j0 = blk * U;
+  const int d = blockIdx.x / (nb * rs), sl = blockIdx.x / nb % rs;
+  const int blk = blockIdx.x % nb, j0 = blk * U;
+  const int ds = d * rs + sl;  // this slice's flags and scratch
+  const int r0 = sl * slice_rows(B, rs), Bl = min(slice_rows(B, rs), B - r0);
   const int rev = (rev_mask >> d) & 1;
   const size_t G = (size_t)ndir * 4 * H, Y = (size_t)ndir * H;
   float* xs = reinterpret_cast<float*>(smem);  // h_{t-1}, [H][Bp]
@@ -1434,9 +1496,9 @@ lstm_fwd_flag_kernel(const float* __restrict__ xp,
       }
   }
 
-  const bool cell = tid < B * U;
+  const bool cell = tid < Bl * U;
   const int b = tid / U, u = tid % U, j = j0 + u;
-  const int len = cell ? lengths[b] : 0;
+  const int len = cell ? lengths[r0 + b] : 0;
   float bq[4] = {0.f, 0.f, 0.f, 0.f}, h = 0.f, cc = 0.f;
   if (cell)
 #pragma unroll
@@ -1444,7 +1506,8 @@ lstm_fwd_flag_kernel(const float* __restrict__ xp,
   auto prefetch = [&](int s, int p) {
     if (!cell) return;
     const int t = rev ? nt - 1 - s : s;
-    const float* xr = xp + ((size_t)t * B + b) * G + (size_t)d * 4 * H + j;
+    const float* xr =
+        xp + ((size_t)t * B + r0 + b) * G + (size_t)d * 4 * H + j;
     float* slot = reinterpret_cast<float*>(xslot + p * kThreads + tid);
 #pragma unroll
     for (int q = 0; q < 4; ++q)
@@ -1458,8 +1521,8 @@ lstm_fwd_flag_kernel(const float* __restrict__ xp,
   for (int s = 0; s < nt; ++s) {
     const int t = rev ? nt - 1 - s : s, p = s & 1;
     if (s > 0) {
-      const float* hx_src = hx + (size_t)((p ^ 1) * ndir + d) * H * Bp;
-      wait_flags(flags, d, nb, s);
+      const float* hx_src = hx + (size_t)((p ^ 1) * ndir * rs + ds) * H * Bp;
+      wait_flags(flags, ds, nb, s);
       stage_f32(xs, hx_src, nb, U * Bp / 4, U * Bp);
     }
     if (s + 1 < nt) prefetch(s + 1, p ^ 1);
@@ -1515,11 +1578,11 @@ lstm_fwd_flag_kernel(const float* __restrict__ xp,
       h = m * h_new + (1.f - m) * h;
       cc = m * c_new + (1.f - m) * cc;
       yv = h_new * m;
-      hx[((size_t)(p * ndir + d) * H + j) * Bp + b] = h;
+      hx[((size_t)(p * ndir * rs + ds) * H + j) * Bp + b] = h;
     }
-    if (s + 1 < nt) publish(flags + d * nb + blk, (unsigned)(s + 1));
+    if (s + 1 < nt) publish(flags + ds * nb + blk, (unsigned)(s + 1));
     if (cell) {  // off the chain: nothing in this launch reads them
-      const size_t row = (size_t)t * B + b;
+      const size_t row = (size_t)t * B + r0 + b;
       y[row * Y + (size_t)d * H + j] = yv;
       c[row * Y + (size_t)d * H + j] = cc;
       float* gr = g4 + row * G + (size_t)d * 4 * H + j;
@@ -1529,12 +1592,13 @@ lstm_fwd_flag_kernel(const float* __restrict__ xp,
   }
 }
 
-// Backward, per block and step s (a reduce-scatter, as the bf16 cluster
-// kernel's):
-//   s > 0: wait for the flags of step s - 1 and stage this block's units'
-//   slices of every block's partial dh (px, [2][ndir][H / U][Bp][H]: Bp
-//   runs of U floats from each, 40 KB at B=20, in place of the cooperative
-//   kernel's 160 KB of dgates_t); the cell thread adds them to its carried
+// Backward, per block (of row slice sl, as the forward's) and step s (a
+// reduce-scatter, as the bf16 cluster kernel's):
+//   s > 0: wait for the slice's flags of step s - 1 and stage this block's
+//   units' slices of every block's partial dh (px, [2][ndir RS][H / U][Bp]
+//   [H]: Bp runs of U floats from each, 40 KB at B=20 in one slice, 20 KB
+//   in two, in place of the cooperative kernel's 160 KB of dgates_t); the
+//   cell thread adds them to its carried
 //   dh in a fixed order of their sources;
 //   the cell forms dgates_t for the block's 4U columns (into shared memory
 //   and, off the chain, dxp) from the prefetched g4, c_t, c_{t-1} and gy;
@@ -1552,12 +1616,15 @@ lstm_bwd_flag_kernel(const float* __restrict__ whh,
                      const float* __restrict__ g4,
                      const float* __restrict__ gy, float* __restrict__ dxp,
                      float* __restrict__ dbp, float* px, unsigned* flags,
-                     int nt, int B, int H, int ndir, int rev_mask) {
+                     int nt, int B, int H, int ndir, int rev_mask, int rs) {
   using S = FlagShape<U, BP>;
   constexpr int C = 4 * U, Bp = BP, r = S::R, KrMax = S::KrMax;
   extern __shared__ __align__(16) unsigned char smem[];
   const int nb = H / U, tid = threadIdx.x;
-  const int d = blockIdx.x / nb, blk = blockIdx.x % nb, j0 = blk * U;
+  const int d = blockIdx.x / (nb * rs), sl = blockIdx.x / nb % rs;
+  const int blk = blockIdx.x % nb, j0 = blk * U;
+  const int ds = d * rs + sl;  // this slice's flags and scratch
+  const int r0 = sl * slice_rows(B, rs), Bl = min(slice_rows(B, rs), B - r0);
   const int rev = (rev_mask >> d) & 1;
   const size_t G = (size_t)ndir * 4 * H, Y = (size_t)ndir * H;
   const size_t HB = (size_t)H * Bp;
@@ -1584,15 +1651,15 @@ lstm_bwd_flag_kernel(const float* __restrict__ whh,
   }
   for (int i = tid; i < C * Bp; i += kThreads) dg[i] = 0.f;  // rows past B
 
-  const bool cell = tid < B * U;
+  const bool cell = tid < Bl * U;
   const int b = tid / U, u = tid % U, j = j0 + u;
-  const int len = cell ? lengths[b] : 0;
+  const int len = cell ? lengths[r0 + b] : 0;
   float dh = 0.f, dcv = 0.f, db[4] = {0.f, 0.f, 0.f, 0.f};
   // slot [p][0]: the four gates; [p][1]: c_t, c_{t-1}, gy
   auto prefetch = [&](int s, int p) {
     if (!cell) return;
     const int t = rev ? s : nt - 1 - s, tp = rev ? t + 1 : t - 1;
-    const size_t row = (size_t)t * B + b;
+    const size_t row = (size_t)t * B + r0 + b;
     float* sg = reinterpret_cast<float*>(slot + (2 * p) * kThreads + tid);
     float* sc = reinterpret_cast<float*>(slot + (2 * p + 1) * kThreads + tid);
 #pragma unroll
@@ -1600,7 +1667,7 @@ lstm_bwd_flag_kernel(const float* __restrict__ whh,
       cp_async_small<4>(sg + q, g4 + row * G + (size_t)d * 4 * H + q * H + j);
     cp_async_small<4>(sc, c + row * Y + (size_t)d * H + j);
     if (tp >= 0 && tp < nt)
-      cp_async_small<4>(sc + 1, c + ((size_t)tp * B + b) * Y +
+      cp_async_small<4>(sc + 1, c + ((size_t)tp * B + r0 + b) * Y +
                                     (size_t)d * H + j);
     else
       sc[1] = 0.f;
@@ -1618,8 +1685,9 @@ lstm_bwd_flag_kernel(const float* __restrict__ whh,
   for (int s = 0; s < nt; ++s) {
     const int t = rev ? s : nt - 1 - s, p = s & 1;
     if (s > 0) {
-      const float* px_src = px + (size_t)((p ^ 1) * ndir + d) * nb * HB + j0;
-      wait_flags(flags, d, nb, s);
+      const float* px_src =
+          px + (size_t)((p ^ 1) * ndir * rs + ds) * nb * HB + j0;
+      wait_flags(flags, ds, nb, s);
       stage_f32(xs, px_src, nb * Bp, U / 4, H);
     }
     if (s + 1 < nt) prefetch(s + 1, p ^ 1);
@@ -1678,7 +1746,7 @@ lstm_bwd_flag_kernel(const float* __restrict__ whh,
         }
       }
       // [b][k0]: a warp's 32 consecutive k0 of one b are 128 bytes
-      float* out = px + ((size_t)(p * ndir + d) * nb + blk) * HB +
+      float* out = px + ((size_t)(p * ndir * rs + ds) * nb + blk) * HB +
                    (size_t)rg * r * H + kg;
 #pragma unroll
       for (int i = 0; i < KrMax; ++i)
@@ -1686,16 +1754,16 @@ lstm_bwd_flag_kernel(const float* __restrict__ whh,
 #pragma unroll
           for (int q = 0; q < r; ++q)
             out[(size_t)q * H + S::KG * i] = acc[i][q];
-      publish(flags + d * nb + blk, (unsigned)(s + 1));
+      publish(flags + ds * nb + blk, (unsigned)(s + 1));
     }
     if (cell) {  // off the chain
-      float* dr = dxp + ((size_t)t * B + b) * G + (size_t)d * 4 * H + j;
+      float* dr = dxp + ((size_t)t * B + r0 + b) * G + (size_t)d * 4 * H + j;
 #pragma unroll
       for (int q = 0; q < 4; ++q) dr[(size_t)q * H] = dgv[q];
     }
   }
   if (cell) {
-    float* out = dbp + (size_t)b * G + (size_t)d * 4 * H + j;
+    float* out = dbp + (size_t)(r0 + b) * G + (size_t)d * 4 * H + j;
 #pragma unroll
     for (int q = 0; q < 4; ++q) out[(size_t)q * H] = db[q];
   }
@@ -1839,50 +1907,63 @@ int bwd_launch(const T* whh, const int* lengths, const float* c, const T* g4,
 }
 
 // The flag kernel of the forward (way 0) or the backward (1) with U units
-// a block, instantiated for each padded row count BP = 4, 8, ..., 24.
-template <int U, int... BP>
-const void* flag_kernel_of(int way, int B) {
+// a block, instantiated for each padded row count BP of a block: BP = 4,
+// 8, ..., 24 (step 4) in one row slice, 2, 4, ..., 12 (step 2) in two.
+template <int U, int Step, int... BP>
+const void* flag_kernel_of(int way, int Bp) {
   static const void* const fwd[] = {
       reinterpret_cast<const void*>(&lstm_fwd_flag_kernel<U, BP>)...};
   static const void* const bwd[] = {
       reinterpret_cast<const void*>(&lstm_bwd_flag_kernel<U, BP>)...};
-  return (way ? bwd : fwd)[pad4(B) / 4 - 1];
+  return (way ? bwd : fwd)[Bp / Step - 1];
 }
 
-const void* flag_kernel(int way, int U, int B) {
-  return U == 4 ? flag_kernel_of<4, 4, 8, 12, 16, 20, 24>(way, B)
-                : flag_kernel_of<8, 4, 8, 12, 16, 20, 24>(way, B);
+const void* flag_kernel(int way, FlagPlan pl, int B) {
+  const int Bp = padded_rows(B, pl.rs);
+  if (pl.rs == 2)
+    return pl.U == 8 ? flag_kernel_of<8, 2, 2, 4, 6, 8, 10, 12>(way, Bp)
+                     : nullptr;
+  return pl.U == 4 ? flag_kernel_of<4, 4, 4, 8, 12, 16, 20, 24>(way, Bp)
+                   : flag_kernel_of<8, 4, 4, 8, 12, 16, 20, 24>(way, Bp);
 }
 
-// The flag design's launches: ndir * H / U blocks, cooperative (every block
-// must be resident for the flag waits).
-int flag_fwd_launch(int U, const float* xp, const float* whh,
+// The flag design's launches: ndir * RS * H / U blocks, cooperative (every
+// block must be resident for the flag waits).
+int flag_fwd_launch(FlagPlan pl, const float* xp, const float* whh,
                     const float* bias, const int* lengths, float* y,
                     float* c, float* g4, float* hx, unsigned* flags, int nt,
                     int B, int H, int ndir, int rev_mask,
                     cudaStream_t stream) {
-  void* args[] = {&xp, &whh, &bias,  &lengths, &y,  &c, &g4,
-                  &hx, &flags, &nt, &B, &H, &ndir, &rev_mask};
-  return (int)cooperative_launch(flag_kernel(0, U, B), ndir * (H / U),
-                                 flag_fwd_smem(B, H, U), args, stream);
+  const void* kern = flag_kernel(0, pl, B);
+  if (!kern) return (int)cudaErrorInvalidValue;
+  int rs = pl.rs;
+  void* args[] = {&xp,    &whh, &bias, &lengths, &y,    &c,        &g4, &hx,
+                  &flags, &nt,  &B,    &H,       &ndir, &rev_mask, &rs};
+  return (int)cooperative_launch(kern, ndir * rs * (H / pl.U),
+                                 flag_fwd_smem(padded_rows(B, rs), H, pl.U),
+                                 args, stream);
 }
 
-int flag_bwd_launch(int U, const float* whh, const int* lengths,
+int flag_bwd_launch(FlagPlan pl, const float* whh, const int* lengths,
                     const float* c, const float* g4, const float* gy,
                     float* dxp, float* dbp, float* px, unsigned* flags,
                     int nt, int B, int H, int ndir, int rev_mask,
                     cudaStream_t stream) {
-  void* args[] = {&whh, &lengths, &c,  &g4, &gy, &dxp, &dbp,
-                  &px,  &flags,   &nt, &B,  &H,  &ndir, &rev_mask};
-  return (int)cooperative_launch(flag_kernel(1, U, B), ndir * (H / U),
-                                 flag_bwd_smem(B, H, U), args, stream);
+  const void* kern = flag_kernel(1, pl, B);
+  if (!kern) return (int)cudaErrorInvalidValue;
+  int rs = pl.rs;
+  void* args[] = {&whh, &lengths, &c, &g4, &gy,   &dxp,     &dbp, &px,
+                  &flags, &nt,    &B, &H,  &ndir, &rev_mask, &rs};
+  return (int)cooperative_launch(kern, ndir * rs * (H / pl.U),
+                                 flag_bwd_smem(padded_rows(B, rs), H, pl.U),
+                                 args, stream);
 }
 
 // 1 the cluster kernels, 2 the flag design, 0 the cooperative kernels, -1
 // when the device cannot be queried; ``way`` 0 the forward, 1 the backward.
 int design_of(int B, int H, int ndir, int bf16, int way) {
   if (cluster_takes(B, H, bf16)) return 1;
-  const int u = flag_units(B, H, ndir, bf16, way);
+  const int u = flag_plan(B, H, ndir, bf16, way).U;
   return u < 0 ? -1 : (u ? 2 : 0);
 }
 
@@ -1908,9 +1989,13 @@ int lstm_bwd_design(int B, int H, int ndir, int bf16) {
 
 // The flag design's units a block at this shape on the current device for
 // the forward (way 0) or the backward (1), 0 where it does not take the
-// shape, -1 when the device cannot be queried.
+// shape, -1 when the device cannot be queried; and its row slices.
 int lstm_flag_units(int B, int H, int ndir, int bf16, int way) {
-  return flag_units(B, H, ndir, bf16, way);
+  return flag_plan(B, H, ndir, bf16, way).U;
+}
+
+int lstm_flag_slices(int B, int H, int ndir, int bf16, int way) {
+  return flag_plan(B, H, ndir, bf16, way).rs;
 }
 
 // How many clusters of the forward's or the backward's cluster kernel at
@@ -1949,11 +2034,11 @@ int lstm_fwd_scan(const void* xp, const void* whh, const float* bias,
         (__nv_bfloat16*)g4, T, B, ndir, rev_mask, s);
   }
   if (!bf16) {
-    const int u = flag_units(B, H, ndir, bf16, 0);
-    if (u < 0) return (int)cudaErrorInvalidDevice;
-    if (u)
+    const FlagPlan pl = flag_plan(B, H, ndir, bf16, 0);
+    if (pl.U < 0) return (int)cudaErrorInvalidDevice;
+    if (pl.U)
       return flag_fwd_launch(
-          u, (const float*)xp, (const float*)whh, bias, lengths, (float*)y, c,
+          pl, (const float*)xp, (const float*)whh, bias, lengths, (float*)y, c,
           (float*)g4, (float*)hx, bar, T, B, H, ndir, rev_mask, s);
   }
   if (bf16)
@@ -1980,11 +2065,11 @@ int lstm_bwd_scan(const void* whh, const int* lengths, const float* c,
         ndir, rev_mask, s);
   }
   if (!bf16) {
-    const int u = flag_units(B, H, ndir, bf16, 1);
-    if (u < 0) return (int)cudaErrorInvalidDevice;
-    if (u)
+    const FlagPlan pl = flag_plan(B, H, ndir, bf16, 1);
+    if (pl.U < 0) return (int)cudaErrorInvalidDevice;
+    if (pl.U)
       return flag_bwd_launch(
-          u, (const float*)whh, lengths, c, (const float*)g4, (const float*)gy,
+          pl, (const float*)whh, lengths, c, (const float*)g4, (const float*)gy,
           (float*)dxp, dbp, (float*)scratch, bar, T, B, H, ndir, rev_mask, s);
   }
   if (bf16)

@@ -24,8 +24,11 @@ In float32 where ``_flag_plan`` gives a plan (H of 256 to 512, B up to 24:
 the f32 paths' shapes) each direction is spread over H / U blocks of U
 units (the "flag" design), W_hh's slice in registers, the same all-gather
 and reduce-scatter through global scratch, each block releasing a step flag
-that the blocks needing its part poll; the wrapper allocates the scratch
-and zeroes the flags.  Every other shape (f32 the plan refuses, other H,
+that the blocks needing its part poll; with one direction the rows are cut
+into two slices, each with blocks, flags and scratch of its own (a row's
+recurrence needs only its own h and dh), so that 128 blocks of 8 units
+stage half the bytes a step; the wrapper allocates the scratch and zeroes
+the flags.  Every other shape (f32 the plan refuses, other H,
 larger B) takes a persistent cooperative launch: a direction's blocks
 exchange each step's activations through global memory and meet at a grid
 barrier.  The flag and the cooperative designs need every block resident at
@@ -75,9 +78,10 @@ from gantts_tpu_torch.kernels.sru_scan import (
 launch_counts.update(lstm_fwd_scan=0, lstm_bwd_scan=0)
 DESIGNS = ("cooperative", "cluster", "flag")
 
-# The flag design's plan, as csrc/lstm_scan.cu's ``f32_flag_units``:
-# units a block, in order of preference, by way (kFUnits)
-FLAG_UNITS = {"fwd": (4, 8), "bwd": (8, 4)}
+# The flag design's plan, as csrc/lstm_scan.cu's ``f32_flag_plan``:
+# (units a block, row slices), in order of preference, by way (kFPlans)
+FLAG_PLANS = {"fwd": ((8, 2), (4, 1), (8, 1)),
+              "bwd": ((8, 2), (8, 1), (4, 1))}
 FLAG_MAX_B = 24           # rows it takes (kFMaxB)
 FLAG_MAX_H = 512          # H it takes, at most (kFMaxH)
 FLAG_MIN_BLOCKS = 64      # blocks a direction, at least (kFMinBlocks)
@@ -89,41 +93,53 @@ FLAG_THREADS = 256        # threads a block (kThreads)
 class FlagPlan(NamedTuple):
     """How a flag kernel cuts one layer: ``units`` hidden units a block
     (the block's 4 * units gate columns of W_hh, all H rows, in registers
-    for the launch), ``blocks`` blocks a direction, ``grid`` blocks in all
-    (one an SM), and its shared memory a block."""
+    for the launch), ``blocks`` blocks a direction and row slice, ``grid``
+    blocks in all (one an SM), its shared memory a block, the ``slices``
+    the B rows are cut into (each with its own blocks) and the ``rows`` a
+    block pads its slice's rows to."""
     units: int
     blocks: int
     grid: int
     smem: int
+    slices: int
+    rows: int
 
 
 def _pad4(B):
     return -(-B // 4) * 4
 
 
+def _padded_rows(B, slices):
+    """A block's rows (csrc ``padded_rows``): B rounded up to 4 in one
+    slice; a slice's ceil(B / slices) rows rounded up to 2 in more."""
+    per = -(-B // slices)
+    return _pad4(B) if slices == 1 else per + per % 2
+
+
 def _flag_plan(B, H, ndir, dtype, sm_count, way):
     """The flag design's plan for ``lstm_{way}_scan`` (way "fwd" or "bwd")
     at (B, H, ndir) in ``dtype`` on ``sm_count`` SMs, or None where the
     cooperative design takes the shape: float32, 1 <= B <= FLAG_MAX_B,
-    H <= FLAG_MAX_H, and the first U of FLAG_UNITS[way] that divides H by
-    32 U (the threads' split of the products), gives at least
-    FLAG_MIN_BLOCKS blocks of U units a direction, puts every block of
-    every direction on its own SM, and fits the kernel's shared memory
-    (W_hh's slice lives in registers):
+    H <= FLAG_MAX_H, and the first (U, RS) of FLAG_PLANS[way] where U
+    divides H by 32 U (the threads' split of the products), gives at least
+    FLAG_MIN_BLOCKS blocks of U units a direction, every block of every
+    direction and row slice has its own SM, every slice holds a row
+    (B >= RS), and the kernel's shared memory fits (W_hh's slice lives in
+    registers):
 
       "fwd"  h_{t-1} H x Bp, the K splits' partial sums 32 x Bp x 5U,
              the xp slots 2 x 256 x 4 (floats);
       "bwd"  the partial-dh slices H x Bp, dgates_t 4U x Bp, the cell
              input slots 2 x 2 x 256 x 4;
 
-    Bp is B rounded up to 4."""
+    Bp is a block's padded rows (``_padded_rows``)."""
     if (dtype != torch.float32 or not 1 <= B <= FLAG_MAX_B
             or not 1 <= H <= FLAG_MAX_H):
         return None
-    bp = _pad4(B)
-    for U in FLAG_UNITS[way]:
-        nb = H // U
-        if H % (32 * U) or nb < FLAG_MIN_BLOCKS or ndir * nb > sm_count:
+    for U, rs in FLAG_PLANS[way]:
+        nb, bp = H // U, _padded_rows(B, rs)
+        if (H % (32 * U) or nb < FLAG_MIN_BLOCKS or ndir * rs * nb > sm_count
+                or B < rs):
             continue
         if way == "fwd":
             smem = 4 * (H * bp + FLAG_SPLITS * bp * 5 * U
@@ -131,7 +147,7 @@ def _flag_plan(B, H, ndir, dtype, sm_count, way):
         else:
             smem = 4 * (H * bp + 4 * U * bp + 2 * 2 * 4 * FLAG_THREADS)
         if smem <= SMEM_LIMIT:
-            return FlagPlan(U, nb, ndir * nb, smem)
+            return FlagPlan(U, nb, ndir * rs * nb, smem, rs, bp)
     return None
 
 
@@ -242,11 +258,13 @@ def _bind(lib):
     lib.lstm_fwd_scan.argtypes = [P] * 9 + [I] * 6 + [P]
     lib.lstm_bwd_scan.argtypes = [P] * 9 + [I] * 6 + [P]
     lib.lstm_flag_units.argtypes = [I, I, I, I, I]
+    lib.lstm_flag_slices.argtypes = [I, I, I, I, I]
     for way in ("fwd", "bwd"):
         getattr(lib, f"lstm_{way}_design").argtypes = [I, I, I, I]
         getattr(lib, f"lstm_{way}_cluster_occupancy").argtypes = [I, P]
     for fn in (lib.lstm_fwd_scan, lib.lstm_bwd_scan, lib.lstm_fwd_design,
                lib.lstm_bwd_design, lib.lstm_flag_units,
+               lib.lstm_flag_slices,
                lib.lstm_fwd_cluster_occupancy,
                lib.lstm_bwd_cluster_occupancy):
         fn.restype = I
@@ -278,11 +296,13 @@ def _checked_flag_plan(way, B, H, dtype, ndir, device):
     """``_flag_plan`` on ``device``, held to the launcher's own rule."""
     name = f"lstm_{way}_scan"
     plan = _flag_plan(B, H, ndir, dtype, _sm_count(device.index), way)
-    units = _lib().lstm_flag_units(B, H, ndir, int(dtype == torch.bfloat16),
-                                   int(way == "bwd"))
-    if (plan.units if plan else 0) != units:
+    args = (B, H, ndir, int(dtype == torch.bfloat16), int(way == "bwd"))
+    units = _lib().lstm_flag_units(*args)
+    slices = _lib().lstm_flag_slices(*args)
+    if ((plan.units, plan.slices) if plan else (0, 1)) != (units, slices):
         raise RuntimeError(f"{name}: the launcher plans {units} units a "
-                           f"block, _flag_plan {plan}")
+                           f"block in {slices} row slices, _flag_plan "
+                           f"{plan}")
     return plan
 
 
@@ -345,9 +365,10 @@ def lstm_fwd_scan(xp, whh, bias, lengths, reverse):
     if design == "cooperative":
         hx = torch.empty((2, ndir, B, H), dtype=xp.dtype, device=dev)
         bar = torch.zeros(ndir, dtype=torch.int32, device=dev)
-    elif design == "flag":  # h by step parity, [H][Bp]; a flag a block
+    elif design == "flag":  # h by parity and slice, [H][Bp]; a flag a block
         plan = _checked_flag_plan("fwd", B, H, xp.dtype, ndir, dev)
-        hx = torch.empty((2, ndir, H, _pad4(B)), dtype=xp.dtype, device=dev)
+        hx = torch.empty((2, ndir * plan.slices, H, plan.rows),
+                         dtype=xp.dtype, device=dev)
         bar = torch.zeros(plan.grid, dtype=torch.int32, device=dev)
     _launched(name, _lib().lstm_fwd_scan(
         xp.data_ptr(), whh.data_ptr(), bias.data_ptr(), lengths.data_ptr(),
@@ -380,9 +401,9 @@ def lstm_bwd_scan(whh, lengths, c, g4, gy, reverse):
     design = bwd_design(B, H, g4.dtype, ndir)
     if design == "cooperative":
         bar = torch.zeros(ndir, dtype=torch.int32, device=dev)
-    elif design == "flag":  # each block's partial dh by step parity
+    elif design == "flag":  # each block's partial dh by parity and slice
         plan = _checked_flag_plan("bwd", B, H, g4.dtype, ndir, dev)
-        px = torch.empty((2, ndir, plan.blocks, _pad4(B), H),
+        px = torch.empty((2, ndir * plan.slices, plan.blocks, plan.rows, H),
                          dtype=torch.float32, device=dev)
         bar = torch.zeros(plan.grid, dtype=torch.int32, device=dev)
     _launched(name, _lib().lstm_bwd_scan(

@@ -540,12 +540,15 @@ def test_lstm_fwd_step_shape_takes_the_cluster_kernel(cuda):
     assert L.fwd_cluster_occupancy(256) >= 2
 
 
-# The f32 flag design (H / U blocks a direction, per-block step flags):
+# The f32 flag design (H / U blocks a direction and row slice, step flags):
 # limits of chip_smoke.py phase 3, 1e-5 of scale for every output.
 FLAG_TOL = 1e-5
-FLAG_LENGTHS = {1: [37], 3: [64, 0, 17],
+FLAG_LENGTHS = {1: [37], 2: [0, 41], 3: [64, 0, 17],
+                7: [64, 9, 0, 33, 64, 1, 50],
                 20: [64, 0, 33, 0, 0, 5, 64, 12, 1, 0, 50, 64, 2, 0, 40, 7,
-                     0, 63, 28, 0]}
+                     0, 63, 28, 0],
+                24: [64, 0, 33, 0, 0, 5, 64, 12, 1, 0, 50, 64, 2, 0, 40, 7,
+                     0, 63, 28, 0, 64, 19, 0, 3]}
 
 
 def _flag_case(dev, reverse, Bn, Tn=64, Hn=512):
@@ -560,11 +563,14 @@ def _flag_case(dev, reverse, Bn, Tn=64, Hn=512):
 
 
 @pytest.mark.parametrize("reverse", LSTM_CASES)
-@pytest.mark.parametrize("Bn", [1, 3, 20])
+@pytest.mark.parametrize("Bn", [1, 2, 3, 7, 20, 24])
 def test_lstm_flag_kernels(cuda, reverse, Bn):
-    """The f32 flag design at T=64, H=512 (one direction: 128 blocks of 4
-    units; two: 64 a direction of 8), B of 1, 3 and 20 with zero-length
-    rows, against the plain versions; padded frames exactly 0; the trace
+    """The f32 flag design at T=64, H=512 (one direction: two row slices of
+    64 blocks of 8 units, one row 128 blocks of 4 forward and 64 of 8
+    backward; two directions: 64 blocks of 8 a direction, all rows), B of
+    1, 2 (a row a slice), 3 and 7 (slices of 2 and 1, 4 and 3 rows), 20 and
+    24 (the largest row count it takes) with zero-length rows, against the
+    plain versions; padded frames exactly 0; the trace
     names both flag kernels; the same inputs again give the same bits (the
     partial sums are added in a fixed order)."""
     from gantts_tpu_torch.kernels import lstm_scan as L
@@ -594,6 +600,98 @@ def test_lstm_flag_kernels(cuda, reverse, Bn):
         assert torch.equal(a, b)
 
 
+def _flag_run(L, t, reverse):
+    """Both f32 flag kernels on the inputs ``t``: the forward, then the
+    backward from the forward's own c and g4."""
+    y, c, g4 = L.lstm_fwd_scan(t["xp"], t["whh"], t["bias"], t["lengths"],
+                               reverse)
+    dxp, db = L.lstm_bwd_scan(t["whh"], t["lengths"], c, g4, t["gy"],
+                              reverse)
+    return y, c, g4, dxp, db
+
+
+@pytest.mark.parametrize("reverse", [(False,), (False, True)])
+def test_lstm_flag_kernels_on_reused_scratch(cuda, monkeypatch, reverse):
+    """Each launch's step flags count from 0 again on memory that held an
+    earlier launch's counts (the wrapper zeroes them on every launch), and
+    h and the partial dh scratch may hold an earlier launch's values:
+    inputs A then B launched back to back eagerly, the wrapper's zeroed
+    flags handed the last launch's buffer of their shape again (as the
+    caching allocator may), and a CUDA graph of the forward and backward
+    captured on A (its scratch and flags at fixed addresses, the zeroing a
+    memset node) and replayed after B is copied into its inputs, each give
+    B's first launch's outputs bit for bit."""
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    nd, Bn, Tn = len(reverse), 20, 64
+    keys = ("xp", "whh", "bias", "lengths", "gy")
+    a = dict(zip(keys, _lstm_inputs(cuda, torch.float32, nd, Tn, Bn, 512,
+                                    seed=1)))
+    b = dict(zip(keys, _lstm_inputs(cuda, torch.float32, nd, Tn, Bn, 512,
+                                    seed=2)))
+    ref_b = _flag_run(L, b, reverse)
+    ref_a = _flag_run(L, a, reverse)
+
+    held, calls, zeros = {}, [], torch.zeros
+
+    def reused(*args, **kw):  # the last launch's flags of this shape
+        out = zeros(*args, **kw)
+        if out.dtype != torch.int32:
+            return out
+        calls.append(tuple(out.shape))
+        return held.setdefault(tuple(out.shape), out).zero_()
+    monkeypatch.setattr(torch, "zeros", reused)
+    _flag_run(L, a, reverse)
+    eager = _flag_run(L, b, reverse)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert len(calls) == 4 and calls[:2] == calls[2:], calls
+
+    static = {k: v.clone() for k, v in a.items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _flag_run(L, static, reverse)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _flag_run(L, static, reverse)
+    graph.replay()
+    torch.cuda.synchronize()
+    replay_a = [o.clone() for o in out]
+    for k in keys:
+        static[k].copy_(b[k])
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(replay_a, ref_a):
+        assert torch.equal(got, want)
+    for got, want in zip(eager, ref_b):
+        assert torch.equal(got, want)
+    for got, want in zip(out, ref_b):
+        assert torch.equal(got, want)
+
+
+def test_lstm_flag_forward_carries_a_nan(cuda):
+    """A NaN in one row's input reaches that row's h, which the forward
+    exchanges between blocks every step: the row's outputs are NaN from
+    that step on, as the plain version's, the other rows are untouched, and
+    the launch neither hangs nor traps."""
+    from gantts_tpu_torch.kernels import lstm_scan as L
+
+    xp, whh, bias, lengths, _ = _flag_case(cuda, (False,), 20)
+    xp[5, 6] = float("nan")
+    y_k, c_k, _ = L.lstm_fwd_scan(xp, whh, bias, lengths, (False,))
+    y_p, c_p, _ = L.lstm_fwd_scan_plain(xp, whh, bias, lengths, (False,))
+    torch.cuda.synchronize()
+    for got, ref in ((y_k, y_p), (c_k, c_p)):
+        nan = torch.isnan(ref)
+        assert torch.equal(torch.isnan(got), nan)
+        assert nan[5:lengths[6], 6].all()
+        assert not nan[:, torch.arange(20, device=cuda) != 6].any()
+        assert _rel(got.masked_fill(nan, 0), ref.masked_fill(nan, 0)) <= \
+            FLAG_TOL
+
+
 @pytest.mark.parametrize("Bn,Hn,nd", [(1, 512, 1), (20, 512, 1),
                                       (20, 512, 2), (24, 512, 2),
                                       (25, 512, 1), (20, 64, 1),
@@ -612,6 +710,8 @@ def test_lstm_flag_plan_is_the_launchers(cuda, Bn, Hn, nd):
         plan = L._flag_plan(Bn, Hn, nd, f32, sms, way)
         assert L._lib().lstm_flag_units(Bn, Hn, nd, 0, i) == (
             plan.units if plan else 0)
+        assert L._lib().lstm_flag_slices(Bn, Hn, nd, 0, i) == (
+            plan.slices if plan else 1)
         want = "flag" if plan else "cooperative"
         assert getattr(L, f"{way}_design")(Bn, Hn, f32, nd) == want
         assert (plan is not None) == ((Bn, Hn) in ((1, 512), (20, 512),

@@ -2,10 +2,11 @@
 versions it is held to on the card against the JAX package.
 
 The plan (``kernels/lstm_scan.py`` ``_flag_plan``, the launcher's
-``f32_flag_units`` rule) at the port's f32 path shapes: every hidden unit
-is owned by exactly one block, a block's shared memory fits Hopper's
-232,448 bytes, every block of every direction has an SM of its own on an
-H100's 132, and the shapes it refuses go to the cooperative design.
+``f32_flag_plan`` rule) at the port's f32 path shapes: every hidden unit
+is owned by exactly one block of a row slice, every row by one slice, a
+block's shared memory fits Hopper's 232,448 bytes, every block of every
+direction and slice has an SM of its own on an H100's 132, and the shapes
+it refuses go to the cooperative design.
 
 The plain versions (``lstm_fwd_scan_plain`` / ``lstm_bwd_scan_plain``,
 which CPU tensors take) against the JAX package's Pallas LSTM kernels in
@@ -43,15 +44,28 @@ def test_flag_plan_at_the_path_shapes(B, H, ndir, way):
     assert L._flag_plan(B, H, ndir, torch.bfloat16, SMS, way) is None
     if plan is None:
         return
-    # block k of a direction owns units [k U, (k + 1) U): each once
+    # block k of a direction and row slice owns units [k U, (k + 1) U):
+    # each once
     owned = [k * plan.units + u for k in range(plan.blocks)
              for u in range(plan.units)]
     assert sorted(owned) == list(range(H))
-    assert plan.grid == ndir * plan.blocks <= SMS
+    assert plan.grid == ndir * plan.slices * plan.blocks <= SMS
     assert plan.smem <= 232448
-    # the forward spreads one direction over 128 blocks of 4 units, the
-    # backward over 64 of 8; two directions over 64 blocks of 8 each
-    assert plan.units == (4 if ndir == 1 and way == "fwd" else 8)
+    # one direction: B >= 2 rows in two slices of 64 blocks of 8 units a
+    # way (128 blocks), one row at 4 units forward (128 blocks) and 8
+    # backward (64); two directions: 64 blocks of 8 each, all rows
+    split = ndir == 1 and B >= 2
+    assert plan.slices == (2 if split else 1)
+    assert plan.units == (4 if ndir == 1 and way == "fwd" and B == 1 else 8)
+    # slice i holds rows [i ceil(B / S), ...): every row once, every slice
+    # at least one, within the block's padded rows (a multiple of 2, of 4
+    # with one slice)
+    per = -(-B // plan.slices)
+    rows = [list(range(i * per, min(B, (i + 1) * per)))
+            for i in range(plan.slices)]
+    assert sum(rows, []) == list(range(B)) and all(rows)
+    assert all(len(r) <= plan.rows for r in rows)
+    assert plan.rows % (2 if split else 4) == 0
     # the threads' split of the products: 32 K splits a forward thread
     # of H / 32 k, KG = 32 U row groups of the backward's partial dh
     assert H % (32 * plan.units) == 0

@@ -36,8 +36,12 @@ flags (``lstm_fwd_flag_kernel`` / ``lstm_bwd_flag_kernel``):
   no cell loads    the cell's inputs are not read from memory;
   last warp's flag the flag released by the last warp's thread, not thread
                    0 (whose warp has the cells' stores in flight);
-  U=8 / U=4        both kernels at 8 or 4 units a block (the plan takes 4
-                   for the forward and 8 for the backward where they fit).
+  one row slice    every row in one slice (the plan before row slices: the
+                   forward at 4 units a block, the backward at 8, with one
+                   direction 128 and 64 blocks);
+  U=8 / U=4        both kernels at 8 or 4 units a block, one row slice
+                   (the plan takes 8 units in two row slices with one
+                   direction, 8 in one with two).
 
 Each difference from ``full`` bounds what that part adds to the serial
 chain.  The copies compute wrong values; only their times mean anything.
@@ -121,12 +125,12 @@ COOP_CELL_LOADS = [
 # Every f32 shape to the cooperative kernels, in the copies timed as that
 # design.
 COOP_FORCE = [
-    ("  return f32_flag_units(B, H, ndir, bf16, sms, way);\n}",
-     "  return 0;\n}")]
+    ("  return f32_flag_plan(B, H, ndir, bf16, sms, way);\n}",
+     "  return {0, 1};\n}")]
 
 # --- the flag design ---------------------------------------------------------
 FLAG_EXCHANGE = [
-    ("wait_flags(flags, d, nb, s);", ""),
+    ("wait_flags(flags, ds, nb, s);", ""),
     ("stage_f32(xs, hx_src, nb, U * Bp / 4, U * Bp);", ""),
     ("stage_f32(xs, px_src, nb * Bp, U / 4, H);", ""),
 ]
@@ -145,11 +149,11 @@ FLAG_CELL_LOADS = [
      "    return;\n    const int t = rev ? nt - 1 - s : s;\n"
      "    const float* xr"),
     ("    if (!cell) return;\n    const int t = rev ? s : nt - 1 - s, "
-     "tp = rev ? t + 1 : t - 1;\n    const size_t row = (size_t)t * B + b;\n"
-     "    float* sg",
+     "tp = rev ? t + 1 : t - 1;\n    const size_t row = (size_t)t * B + r0 + "
+     "b;\n    float* sg",
      "    return;\n    const int t = rev ? s : nt - 1 - s, "
-     "tp = rev ? t + 1 : t - 1;\n    const size_t row = (size_t)t * B + b;\n"
-     "    float* sg"),
+     "tp = rev ? t + 1 : t - 1;\n    const size_t row = (size_t)t * B + r0 + "
+     "b;\n    float* sg"),
     ("const float4 xv = xslot_at(p, tid);",
      "const float4 xv = make_float4(0.25f, 0.375f, 0.5f, 0.625f);"),
     ("const float4 gv = gslot(p, tid);\n"
@@ -161,7 +165,22 @@ FLAG_LAST_WARP = [
     ("  if (threadIdx.x == 0) st_release(flag, v);",
      "  if (threadIdx.x == kThreads - 1) st_release(flag, v);"),
 ]
-FLAG_UNITS = "constexpr int kFUnits[2][2] = {{4, 8}, {8, 4}};"
+FLAG_PLANS = ("constexpr int kFPlans[2][3][2] = {{{8, 2}, {4, 1}, {8, 1}},\n"
+              "                                  {{8, 2}, {8, 1}, {4, 1}}};")
+# Copies of the source with another plan, and the plan the package's
+# wrapper must then hold the launcher to (kernels/lstm_scan.py FLAG_PLANS).
+PLANS = {
+    "one row slice": {"fwd": ((4, 1), (8, 1), (8, 1)),
+                      "bwd": ((8, 1), (4, 1), (4, 1))},
+    "U=8": dict.fromkeys(("fwd", "bwd"), ((8, 1),) * 3),
+    "U=4": dict.fromkeys(("fwd", "bwd"), ((4, 1),) * 3)}
+
+
+def _plans_source(plans):
+    rows = ["{" + ", ".join(f"{{{u}, {rs}}}" for u, rs in plans[way]) + "}"
+            for way in ("fwd", "bwd")]
+    return ("constexpr int kFPlans[2][3][2] = {" + rows[0] + ",\n"
+            "                                  " + rows[1] + "};")
 
 DESIGNS = {
     "cooperative": ("lstm_{way}_kernel", COOP_FORCE, {
@@ -172,10 +191,8 @@ DESIGNS = {
         "full": [], "no exchange": FLAG_EXCHANGE, "no product": FLAG_PRODUCT,
         "relaxed flag": FLAG_RELAXED, "no cell loads": FLAG_CELL_LOADS,
         "last warp's flag": FLAG_LAST_WARP,
-        "U=8": [(FLAG_UNITS,
-                 "constexpr int kFUnits[2][2] = {{8, 8}, {8, 8}};")],
-        "U=4": [(FLAG_UNITS,
-                 "constexpr int kFUnits[2][2] = {{4, 4}, {4, 4}};")]}),
+        **{name: [(FLAG_PLANS, _plans_source(plans))]
+           for name, plans in PLANS.items()}}),
 }
 
 
@@ -228,7 +245,7 @@ def main(argv=None):
     f32 = torch.float32
     lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
     rows = {}
-    package_lib, package_units = L._lib, L.FLAG_UNITS
+    package_lib, package_plans = L._lib, L.FLAG_PLANS
     try:
         for reverse in ((False,), (False, True)):
             nd = len(reverse)
@@ -244,9 +261,7 @@ def main(argv=None):
             for name, lib in libs.items():
                 L._lib = lambda lib=lib: lib  # noqa: E731
                 # the wrapper holds its plan to the launcher's
-                L.FLAG_UNITS = (dict.fromkeys(("fwd", "bwd"),
-                                              (int(name[2:]),) * 2)
-                                if name.startswith("U=") else package_units)
+                L.FLAG_PLANS = PLANS.get(name, package_plans)
                 took = (L.fwd_design(B, H, f32, nd),
                         L.bwd_design(B, H, f32, nd))
                 fwd = time_ms(lambda: L.lstm_fwd_scan(xp, whh, bias, lengths,
@@ -263,7 +278,7 @@ def main(argv=None):
                       f"{bwd:.4f} ms ({bwd * 1e3 / T:.3f} us a step)  "
                       f"[{card}]", flush=True)
     finally:
-        L._lib, L.FLAG_UNITS = package_lib, package_units
+        L._lib, L.FLAG_PLANS = package_lib, package_plans
     for nd in (1, 2):
         full = rows[f"{nd} full"]
         print(f"{nd} direction(s), us a step off the full step:  " + "  ".join(
